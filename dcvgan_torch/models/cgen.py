@@ -1,0 +1,152 @@
+"""Colour video generator (eval mode): the per-frame U-Net colouriser.
+
+Counterpart of ``dcvgan_tpu/models/cgen.py``. Geometry frames become RGB,
+conditioned on one colour latent per video concatenated at the 1x1
+bottleneck. Inconv = conv3x3 + LeakyReLU(0.01); six down blocks at 64 px
+(conv k4 s2 p1 + BatchNorm + LeakyReLU 0.2); six up blocks (transposed conv
+k4 s2 p1 + BatchNorm [+ Dropout2d on the first two] + ReLU) with skips;
+outconv = transposed conv3x3 + tanh. Segmentation inputs are re-binarised
+to a +-1 one-hot by argmax.
+
+The down path runs on :func:`fused_norm_act_conv`. In eval mode a
+BatchNorm is a per-channel affine, so down block i (i >= 1) is exactly
+``fused_norm_act_conv(raw_{i-1}, fold(bn_{i-1}), w_i)`` where ``raw_{i-1}``
+is block i-1's conv output; the activation the kernel feeds its product is
+written once to ``xn_out`` and kept as the skip ``hs[i]``. Only down0's conv
+and the last block's BatchNorm + LeakyReLU (at 1x1) run as plain ops.
+
+The state-dict naming is the reference's: ``inconv.main.0``,
+``down_blocks.{i}.main.{0,1}``, ``up_blocks.{i}.main.{0,1}``,
+``outconv.main.0``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from dcvgan_torch.models.layers import (
+    batch_norm,
+    fold_batch_norm,
+    fold_time,
+    init_weights_,
+    leaky_relu,
+    same_pad_conv,
+    unfold_time,
+    up_conv,
+)
+from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+
+
+class _Block(nn.Module):
+    """A ``main`` Sequential, for the reference's state-dict names."""
+
+    def __init__(self, *layers: nn.Module):
+        super().__init__()
+        self.main = nn.Sequential(*layers)
+
+
+class ColorVideoGenerator(nn.Module):
+    def __init__(
+        self,
+        in_ch: int = 1,
+        dim_z: int = 10,
+        geometric_info: str = "depth",
+        ngf: int = 64,
+        video_length: int = 16,
+        image_size: int = 64,
+    ):
+        super().__init__()
+        self.in_ch = in_ch
+        self.dim_z = dim_z
+        self.geometric_info = geometric_info
+        self.video_length = video_length
+        down_mults = self._down_mults(image_size)
+        n = len(down_mults)
+        up_mults = list(reversed(down_mults[:-1])) + [1]
+
+        self.inconv = _Block(
+            nn.Conv2d(in_ch, ngf, 3, 1, 1, bias=False), nn.LeakyReLU(0.01)
+        )
+        downs, cin = [], ngf
+        for mult in down_mults:
+            cout = ngf * mult
+            downs.append(
+                _Block(same_pad_conv(cin, cout), batch_norm(cout), nn.LeakyReLU(0.2))
+            )
+            cin = cout
+        self.down_blocks = nn.ModuleList(downs)
+
+        ups, cin = [], ngf * down_mults[-1] + dim_z
+        for i, mult in enumerate(up_mults):
+            if i > 0:
+                cin += ngf * down_mults[n - 1 - i]  # skip hs[n - i]
+            cout = ngf * mult
+            layers = [up_conv(cin, cout), batch_norm(cout)]
+            if i < 2:
+                layers.append(nn.Dropout2d(0.5))
+            layers.append(nn.ReLU())
+            ups.append(_Block(*layers))
+            cin = cout
+        self.up_blocks = nn.ModuleList(ups)
+        self.outconv = _Block(
+            nn.ConvTranspose2d(cin + ngf, 3, 3, 1, 1, bias=False), nn.Tanh()
+        )
+
+    @staticmethod
+    def _down_mults(image_size: int) -> List[int]:
+        # 64 px: [1, 2, 4, 4, 4, 4], the reference's channel schedule
+        return [1, 2] + [4] * (int(math.log2(image_size)) - 2)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        init_weights_(self, generator)
+
+    def forward(self, x: torch.Tensor, z: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Geometry frames ``(N, in_ch, H, W)`` and latents ``(N, dim_z)`` to
+        RGB frames ``(N, 3, H, W)``, channels-last."""
+        if train or self.training:
+            raise NotImplementedError(
+                "train-mode ColorVideoGenerator arrives with the training slice; "
+                "call .eval() and pass train=False"
+            )
+        dtype = self.inconv.main[0].weight.dtype
+        x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+        if self.geometric_info == "segmentation":
+            idx = x.argmax(dim=1)
+            x = F.one_hot(idx, x.shape[1]).to(dtype) * 2.0 - 1.0
+            x = x.permute(0, 3, 1, 2)  # NHWC memory: a channels-last view
+
+        hs = [self.inconv.main(x)]
+        raw = self.down_blocks[0].main[0](hs[0])
+        for i in range(1, len(self.down_blocks)):
+            scale, shift = fold_batch_norm(self.down_blocks[i - 1].main[1])
+            raw = raw.contiguous(memory_format=torch.channels_last)
+            skip = torch.empty_like(raw)
+            raw = fused_norm_act_conv(
+                raw, scale, shift, self.down_blocks[i].main[0].weight, 0.2, xn_out=skip
+            )
+            hs.append(skip)
+        last = self.down_blocks[-1].main
+        h = leaky_relu(last[1](raw), 0.2)
+        hs.append(h)
+
+        n = len(self.down_blocks)
+        h = torch.cat([h, z.to(dtype).reshape(z.shape[0], -1, 1, 1)], dim=1)
+        for i, blk in enumerate(self.up_blocks):
+            if i > 0:
+                h = torch.cat([h, hs[n - i]], dim=1)
+            h = blk.main(h)
+        return self.outconv.main(torch.cat([h, hs[0]], dim=1))
+
+    def forward_videos(self, xs: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """Colourise geometry videos ``(B, T, H, W, in_ch)`` with one latent
+        per video ``(B, dim_z)``, repeated over T, to ``(B, T, H, W, 3)``."""
+        b, t = xs.shape[:2]
+        z = z[:, None, :].expand(b, t, z.shape[-1]).reshape(b * t, -1)
+        frames = fold_time(xs).permute(0, 3, 1, 2)
+        ys = self(frames, z).permute(0, 2, 3, 1)
+        return unfold_time(ys, b)

@@ -1,0 +1,108 @@
+"""The port's geometric video generator against the JAX package's, eval mode.
+
+Weights come from a randomised flax tree through ``from_jax``; latents, ``e``
+and ``h0`` are drawn with numpy and injected on both sides.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dcvgan_torch.compat.from_jax import ggen_from_jax
+from dcvgan_torch.models.ggen import GeometricVideoGenerator as PortGGen
+from dcvgan_torch.models.layers import cast_for_compute
+from dcvgan_tpu.models import GeometricVideoGenerator as JaxGGen
+from torch_port_util import ATOL_F32, NGF, randomize_tree, within
+
+DZC, DZM, B, T = 6, 4, 2, 4
+# bf16 against JAX in bf16: the GRU cell and the BatchNorm+ReLU stages round
+# at different points in the two frameworks (flax normalises in f32 and
+# rounds once; torch's GRU cell rounds per op). Measured max |diff| over
+# three seeds: 1.1e-2 (GRU states), 7.8e-3 (frames in [-1, 1]); held at 2e-2.
+BF16_ATOL = 2e-2
+
+
+def _models(geometric_info, channel, dtype_jax, dtype_torch, seed):
+    jm = JaxGGen(
+        dim_z_content=DZC, dim_z_motion=DZM, channel=channel,
+        geometric_info=geometric_info, ngf=NGF, video_length=T, dtype=dtype_jax,
+    )
+    v = jax.eval_shape(
+        lambda: jm.init({"params": jax.random.key(0), "latent": jax.random.key(1)}, 1, train=False)
+    )
+    rng = np.random.default_rng(seed)
+    params = randomize_tree(v["params"], rng)
+    stats = randomize_tree(v["batch_stats"], rng)
+    pm = PortGGen(
+        dim_z_content=DZC, dim_z_motion=DZM, channel=channel,
+        geometric_info=geometric_info, ngf=NGF, video_length=T,
+    )
+    pm.load_state_dict(ggen_from_jax(params, stats))
+    cast_for_compute(pm, torch.device("cpu"), dtype_torch).eval()
+    return jm, {"params": params, "batch_stats": stats}, pm
+
+
+def _latents(seed):
+    rng = np.random.default_rng(seed)
+    e = rng.normal(size=(B, T, DZM)).astype(np.float32)
+    h0 = rng.normal(size=(B, DZM)).astype(np.float32)
+    z = rng.normal(size=(B * T, DZC + DZM)).astype(np.float32)
+    return e, h0, z
+
+
+def _jax_gru(jm, variables, e, h0):
+    run = jax.jit(lambda v, e, h0: jm.apply(
+        v, e, h0, method=lambda m, e, h0: m.recurrent(e, initial_carry=h0)))
+    return run(variables, jnp.asarray(e), jnp.asarray(h0))
+
+
+def _jax_decode(jm, variables, z):
+    return jax.jit(lambda v, z: jm.apply(v, z, False, method=JaxGGen.decode))(variables, jnp.asarray(z))
+
+
+@pytest.mark.parametrize(
+    "dtypes,atol",
+    [((jnp.float32, torch.float32), ATOL_F32), ((jnp.bfloat16, torch.bfloat16), BF16_ATOL)],
+    ids=["f32", "bf16"],
+)
+def test_gru_and_decoder_match_jax(dtypes, atol):
+    jm, variables, pm = _models("depth", 1, *dtypes, seed=0)
+    e, h0, z = _latents(1)
+    with torch.no_grad():
+        got_m = pm.motion(torch.from_numpy(e), torch.from_numpy(h0))
+        got_x = pm.decode(torch.from_numpy(z))
+    want_m = _jax_gru(jm, variables, e, h0)
+    want_x = _jax_decode(jm, variables, z)
+    within(got_m.float().numpy(), np.asarray(want_m, np.float32), atol)
+    within(got_x.float().numpy(), np.asarray(want_x, np.float32), atol)
+    assert got_x.shape == (B * T, 64, 64, 1)
+
+
+def test_forward_is_content_repeated_plus_motion():
+    jm, variables, pm = _models("depth", 1, jnp.float32, torch.float32, seed=2)
+    e, h0, _ = _latents(3)
+    zc = np.random.default_rng(4).normal(size=(B, DZC)).astype(np.float32)
+    with torch.no_grad():
+        got = pm(torch.from_numpy(zc), torch.from_numpy(e), torch.from_numpy(h0))
+    zm = np.asarray(_jax_gru(jm, variables, e, h0))
+    z = np.concatenate([np.repeat(zc[:, None], T, axis=1), zm], axis=-1)
+    want = _jax_decode(jm, variables, z.reshape(B * T, -1))
+    within(got.numpy(), np.asarray(want).reshape(B, T, 64, 64, 1), ATOL_F32)
+
+
+def test_segmentation_softmax_head():
+    jm, variables, pm = _models("segmentation", 25, jnp.float32, torch.float32, seed=5)
+    _, _, z = _latents(6)
+    with torch.no_grad():
+        got = pm.decode(torch.from_numpy(z)).numpy()
+    want = np.asarray(_jax_decode(jm, variables, z))
+    within(got, want, ATOL_F32)
+    np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-5)
+
+
+def test_train_mode_raises():
+    pm = PortGGen(dim_z_content=DZC, dim_z_motion=DZM, ngf=NGF, video_length=T)
+    with pytest.raises(NotImplementedError):
+        pm.decode(torch.zeros(1, DZC + DZM))

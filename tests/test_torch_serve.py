@@ -1,0 +1,123 @@
+"""The port's serving loop: quantize, checksum, seeded replay, CLI, device rule."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from dcvgan_torch.cli import serve as port_serve
+from dcvgan_torch.cli.serve import GenerationServer, Sink, quantize, serve
+from dcvgan_torch.config import ExperimentConfig
+from dcvgan_torch.train.step import DCVGAN
+from torch_port_util import NGF
+
+T = 4
+TINY = {
+    "video_length": T,
+    "image_size": 64,
+    "geometric_info": {"name": "depth", "channel": 1},
+    "ggen": {"dim_z_content": 8, "dim_z_motion": 4, "ngf": NGF},
+    "cgen": {"dim_z_color": 4, "ngf": NGF},
+    "trainer": {"precision": "bfloat16"},
+}
+
+
+def _jax_quantize(x):
+    # the expression of dcvgan_tpu/cli/serve.py's make_chunk_fn
+    return ((jnp.clip(x, -1.0, 1.0) + 1.0) * 127.5).astype(jnp.uint8)
+
+
+def _quantize_inputs():
+    rng = np.random.default_rng(0)
+    # integers k/127.5 - 1 and points just below them, where a truncating
+    # cast and a rounding one part, plus values outside [-1, 1]
+    k = np.arange(256, dtype=np.float64)
+    edges = k / 127.5 - 1.0
+    vals = np.concatenate([
+        edges, np.nextafter(edges, -2.0), edges - 1e-3, edges + 1e-3,
+        rng.uniform(-1.5, 1.5, 4096), [-1.0, 1.0, -2.0, 2.0, 0.0, -0.0],
+    ])
+    return vals.astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_is_byte_identical_to_jax(dtype):
+    x = _quantize_inputs()
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    # the same inputs on both sides (bf16 rounding of f32 is round-to-nearest-even in both)
+    np.testing.assert_array_equal(np.asarray(jx.astype(jnp.float32)), tx.float().numpy())
+    got = quantize(tx).numpy()
+    np.testing.assert_array_equal(got, np.asarray(_jax_quantize(jx)))
+    np.testing.assert_array_equal(got, np.asarray(jax.jit(_jax_quantize)(jx)))
+    assert got.dtype == np.uint8
+    # the cast truncates: somewhere a rounding cast would give another byte
+    rounded = np.round((np.clip(x, -1, 1) + 1) * 127.5).astype(np.uint8)
+    assert (got != rounded).any()
+
+
+def _gan():
+    cfg = ExperimentConfig.from_dict(TINY)
+    cfg.validate()
+    gan = DCVGAN(cfg, device="cpu")
+    return gan, gan.init_state(0)
+
+
+def test_serve_replays_and_checksums_every_pixel(tmp_path):
+    gan, state = _gan()
+    a = serve(gan, state, 2, 2, 2, Sink("null", None), seed=3)
+    b = serve(gan, state, 2, 2, 2, Sink("null", None), seed=3)
+    assert a["videos"] == 8 and a["device"] == "cpu" and a["value"] > 0
+    assert a["checksum"] == b["checksum"]
+    out = tmp_path / "shards"
+    c = serve(gan, state, 2, 2, 2, Sink("npy", out, with_geo=True), seed=3)
+    assert c["checksum"] == a["checksum"]
+    color = [np.load(p) for p in sorted(out.glob("color_*.npy"))]
+    geo = [np.load(p) for p in sorted(out.glob("geo_*.npy"))]
+    assert len(color) == 2 and color[0].shape == (2, 2, T, 64, 64, 3)
+    assert geo[0].shape == (2, 2, T, 64, 64, 1) and geo[0].dtype == np.uint8
+    total = sum(int(x.sum(dtype=np.int64)) for x in color + geo)
+    assert total % 2**32 == a["checksum"]
+
+
+def test_generation_server_replays_an_explicit_seed():
+    gan, state = _gan()
+    server = GenerationServer(gan, state, batchsize=2, iters_per_chunk=1, geo_name="depth")
+    assert server.video_shape == (T, 64, 64, 3)
+    geo, color = server.generate(3, seed=7, with_geo=True)
+    geo2, color2 = server.generate(3, seed=7, with_geo=True)
+    assert color.shape == (3, T, 64, 64, 3) and geo.shape == (3, T, 64, 64, 1)
+    np.testing.assert_array_equal(color, color2)
+    np.testing.assert_array_equal(geo, geo2)
+    none, color3 = server.generate(3, seed=7)
+    assert none is None
+    np.testing.assert_array_equal(color3, color)
+    assert server.info()["device"] == "cpu"
+
+
+def test_cli_writes_npy_shards(tmp_path, capsys):
+    cfg = tmp_path / "tiny.yml"
+    cfg.write_text(yaml.safe_dump(TINY))
+    out = tmp_path / "out"
+    stats = port_serve.main([
+        "--config", str(cfg), "-b", "2", "--iters-per-chunk", "1", "--chunks", "2",
+        "--sink", "npy", "--out", str(out), "--device", "cpu",
+    ])
+    assert stats["videos"] == 4
+    assert len(list(out.glob("color_*.npy"))) == 2
+    assert '"metric": "serve_videos_per_sec_per_chip"' in capsys.readouterr().out
+
+
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ExperimentConfig.from_dict(TINY)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DCVGAN(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DCVGAN(cfg, device="cuda")
+    path = tmp_path / "tiny.yml"
+    path.write_text(yaml.safe_dump(TINY))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_serve.main(["--config", str(path), "--chunks", "1"])

@@ -336,7 +336,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     cfg = load_config(args.config)
     gan = DCVGAN(cfg, device=args.device)
-    state = gan.load_state(args.weights) if args.weights else gan.init_state(cfg.seed)
+    if args.weights:
+        state = gan.load_state(args.weights)
+    else:
+        # the serving copy of a fresh state: parameters cast once to the compute dtype
+        state = gan.init_state(cfg.seed).generators()
     if not args.no_ema:
         state = state.with_ema_params()
     sink = Sink(args.sink, args.out, args.with_geo)

@@ -1,4 +1,4 @@
-"""Colour video generator (eval mode): the per-frame U-Net colouriser.
+"""Colour video generator: the per-frame U-Net colouriser.
 
 Counterpart of ``dcvgan_tpu/models/cgen.py``. Geometry frames become RGB,
 conditioned on one colour latent per video concatenated at the 1x1
@@ -8,12 +8,20 @@ k4 s2 p1 + BatchNorm [+ Dropout2d on the first two] + ReLU) with skips;
 outconv = transposed conv3x3 + tanh. Segmentation inputs are re-binarised
 to a +-1 one-hot by argmax.
 
-The down path runs on :func:`fused_norm_act_conv`. In eval mode a
+In eval mode the down path runs on :func:`fused_norm_act_conv`: there a
 BatchNorm is a per-channel affine, so down block i (i >= 1) is exactly
 ``fused_norm_act_conv(raw_{i-1}, fold(bn_{i-1}), w_i)`` where ``raw_{i-1}``
 is block i-1's conv output; the activation the kernel feeds its product is
 written once to ``xn_out`` and kept as the skip ``hs[i]``. Only down0's conv
 and the last block's BatchNorm + LeakyReLU (at 1x1) run as plain ops.
+
+Train mode (``train=True``) uses batch statistics, which depend on the conv
+output, so the down path runs unfused, as in the JAX package, whose kernel
+has no backward. The first two up blocks drop whole channels per frame with
+probability 0.5 between BatchNorm and ReLU (one draw per (frame, channel),
+kept values doubled); the keep masks are an explicit input or come from a
+generator. ``update_stats`` says whether the forward moves the running
+BatchNorm statistics.
 
 The state-dict naming is the reference's: ``inconv.main.0``,
 ``down_blocks.{i}.main.{0,1}``, ``up_blocks.{i}.main.{0,1}``,
@@ -23,13 +31,15 @@ The state-dict naming is the reference's: ``inconv.main.0``,
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from dcvgan_torch.models.layers import (
+    Conv2d,
+    ConvTranspose2d,
     batch_norm,
     fold_batch_norm,
     fold_time,
@@ -65,12 +75,13 @@ class ColorVideoGenerator(nn.Module):
         self.dim_z = dim_z
         self.geometric_info = geometric_info
         self.video_length = video_length
+        self.compute_dtype = torch.float32
         down_mults = self._down_mults(image_size)
         n = len(down_mults)
         up_mults = list(reversed(down_mults[:-1])) + [1]
 
         self.inconv = _Block(
-            nn.Conv2d(in_ch, ngf, 3, 1, 1, bias=False), nn.LeakyReLU(0.01)
+            Conv2d(in_ch, ngf, 3, 1, 1, bias=False), nn.LeakyReLU(0.01)
         )
         downs, cin = [], ngf
         for mult in down_mults:
@@ -86,15 +97,17 @@ class ColorVideoGenerator(nn.Module):
             if i > 0:
                 cin += ngf * down_mults[n - 1 - i]  # skip hs[n - i]
             cout = ngf * mult
+            # the channel dropout of the first two blocks has no parameters;
+            # its slot keeps the reference's indices within the block
             layers = [up_conv(cin, cout), batch_norm(cout)]
             if i < 2:
-                layers.append(nn.Dropout2d(0.5))
+                layers.append(nn.Identity())
             layers.append(nn.ReLU())
             ups.append(_Block(*layers))
             cin = cout
         self.up_blocks = nn.ModuleList(ups)
         self.outconv = _Block(
-            nn.ConvTranspose2d(cin + ngf, 3, 3, 1, 1, bias=False), nn.Tanh()
+            ConvTranspose2d(cin + ngf, 3, 3, 1, 1, bias=False), nn.Tanh()
         )
 
     @staticmethod
@@ -105,48 +118,83 @@ class ColorVideoGenerator(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         init_weights_(self, generator)
 
-    def forward(self, x: torch.Tensor, z: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(
+        self,
+        x: torch.Tensor,
+        z: torch.Tensor,
+        train: bool = False,
+        update_stats: bool = True,
+        dropout_masks: Optional[Sequence[torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
         """Geometry frames ``(N, in_ch, H, W)`` and latents ``(N, dim_z)`` to
-        RGB frames ``(N, 3, H, W)``, channels-last."""
-        if train or self.training:
-            raise NotImplementedError(
-                "train-mode ColorVideoGenerator arrives with the training slice; "
-                "call .eval() and pass train=False"
-            )
-        dtype = self.inconv.main[0].weight.dtype
+        RGB frames ``(N, 3, H, W)``, channels-last.
+
+        In train mode ``dropout_masks`` are the keep masks of up blocks 0 and
+        1, boolean ``(N, C)``; without them they are drawn from ``generator``.
+        """
+        dtype = self.compute_dtype
         x = x.to(dtype).contiguous(memory_format=torch.channels_last)
         if self.geometric_info == "segmentation":
+            # argmax cuts the gradient here, as stop_gradient does in JAX
             idx = x.argmax(dim=1)
             x = F.one_hot(idx, x.shape[1]).to(dtype) * 2.0 - 1.0
             x = x.permute(0, 3, 1, 2)  # NHWC memory: a channels-last view
 
         hs = [self.inconv.main(x)]
-        raw = self.down_blocks[0].main[0](hs[0])
-        for i in range(1, len(self.down_blocks)):
-            scale, shift = fold_batch_norm(self.down_blocks[i - 1].main[1])
-            raw = raw.contiguous(memory_format=torch.channels_last)
-            skip = torch.empty_like(raw)
-            raw = fused_norm_act_conv(
-                raw, scale, shift, self.down_blocks[i].main[0].weight, 0.2, xn_out=skip
-            )
-            hs.append(skip)
-        last = self.down_blocks[-1].main
-        h = leaky_relu(last[1](raw), 0.2)
-        hs.append(h)
+        if train:
+            h = hs[0]
+            for blk in self.down_blocks:
+                h = leaky_relu(blk.main[1](blk.main[0](h), True, update_stats), 0.2)
+                hs.append(h)
+        else:
+            h = self._down_fused(hs)
 
         n = len(self.down_blocks)
         h = torch.cat([h, z.to(dtype).reshape(z.shape[0], -1, 1, 1)], dim=1)
         for i, blk in enumerate(self.up_blocks):
             if i > 0:
                 h = torch.cat([h, hs[n - i]], dim=1)
-            h = blk.main(h)
+            h = blk.main[1](blk.main[0](h), train, update_stats)
+            if train and i < 2:
+                if dropout_masks is not None:
+                    keep = dropout_masks[i].to(h.device)
+                else:
+                    keep = torch.rand(h.shape[:2], generator=generator, device=h.device) >= 0.5
+                h = h * (keep.to(dtype) * 2.0)[:, :, None, None]
+            h = F.relu(h)
         return self.outconv.main(torch.cat([h, hs[0]], dim=1))
 
-    def forward_videos(self, xs: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    def _down_fused(self, hs: List[torch.Tensor]) -> torch.Tensor:
+        """The eval-mode down path on the fused op; appends the skips to
+        ``hs`` and returns the bottleneck activation."""
+        dtype = hs[0].dtype
+        raw = self.down_blocks[0].main[0](hs[0])
+        for i in range(1, len(self.down_blocks)):
+            scale, shift = fold_batch_norm(self.down_blocks[i - 1].main[1])
+            raw = raw.contiguous(memory_format=torch.channels_last)
+            skip = torch.empty_like(raw)
+            w = self.down_blocks[i].main[0].weight.to(dtype)
+            raw = fused_norm_act_conv(raw, scale, shift, w, 0.2, xn_out=skip)
+            hs.append(skip)
+        last = self.down_blocks[-1].main
+        h = leaky_relu(last[1](raw), 0.2)
+        hs.append(h)
+        return h
+
+    def forward_videos(
+        self,
+        xs: torch.Tensor,
+        z: torch.Tensor,
+        train: bool = False,
+        update_stats: bool = True,
+        dropout_masks: Optional[Sequence[torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
         """Colourise geometry videos ``(B, T, H, W, in_ch)`` with one latent
         per video ``(B, dim_z)``, repeated over T, to ``(B, T, H, W, 3)``."""
         b, t = xs.shape[:2]
         z = z[:, None, :].expand(b, t, z.shape[-1]).reshape(b * t, -1)
         frames = fold_time(xs).permute(0, 3, 1, 2)
-        ys = self(frames, z).permute(0, 2, 3, 1)
-        return unfold_time(ys, b)
+        ys = self(frames, z, train, update_stats, dropout_masks, generator)
+        return unfold_time(ys.permute(0, 2, 3, 1), b)

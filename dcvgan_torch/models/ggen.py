@@ -1,4 +1,4 @@
-"""Geometric-information video generator (eval mode).
+"""Geometric-information video generator.
 
 Counterpart of ``dcvgan_tpu/models/ggen.py``. Per video, a content code is
 drawn once and repeated over time; a motion code is the state of a GRU cell
@@ -8,9 +8,13 @@ dim_z -> 8*ngf at 4x4, doubling the resolution to ``image_size``, with
 BatchNorm + ReLU between stages; the head is tanh, or a softmax over
 channels for segmentation.
 
-The state-dict naming is the reference's: ``recurrent.*`` (``nn.GRUCell``)
-and ``main.{3i}`` / ``main.{3i+1}`` for the i-th transposed conv and its
-BatchNorm, ``main.{3n}`` for the last conv.
+``train`` selects batch statistics in the decoder's BatchNorms and
+``update_stats`` whether that forward moves their running statistics
+(``models/layers.py``).
+
+The state-dict naming is the reference's: ``recurrent.*`` (an
+``nn.GRUCell``'s four tensors) and ``main.{3i}`` / ``main.{3i+1}`` for the
+i-th transposed conv and its BatchNorm, ``main.{3n}`` for the last conv.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import torch
 import torch.nn as nn
 
 from dcvgan_torch.models.layers import (
+    BatchNorm2d,
+    ConvTranspose2d,
     batch_norm,
     fold_time,
     init_weights_,
@@ -28,6 +34,91 @@ from dcvgan_torch.models.layers import (
     unfold_time,
     up_conv,
 )
+
+
+class GRUCell(nn.Module):
+    """A GRU cell with the flax cell's parameters: one bias for each of the
+    r and z gates, and separate input and hidden biases for the n gate.
+
+        r = sigmoid(W_ir x + b_r + W_hr h)
+        z = sigmoid(W_iz x + b_z + W_hz h)
+        n = tanh(W_in x + b_in + r * (W_hn h + b_hn))
+        h' = (1 - z) * n + z * h
+
+    ``nn.GRUCell`` owns two bias vectors for r and z; both would receive the
+    same gradient and both would step, so their sum would move twice as far
+    under Adam as the flax cell's single bias. Here ``bias_ih`` holds
+    ``[b_r | b_z | b_in]`` and ``bias_hn`` holds ``b_hn``.
+
+    The state dict keeps ``nn.GRUCell``'s names: it writes ``bias_hh`` as
+    ``[0 | 0 | b_hn]``, and on loading adds a ``bias_hh``'s r and z parts
+    into ``bias_ih``.
+    """
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        self.input_size = input_size
+        self.hidden_size = hidden_size
+        self.weight_ih = nn.Parameter(torch.empty(3 * hidden_size, input_size))
+        self.weight_hh = nn.Parameter(torch.empty(3 * hidden_size, hidden_size))
+        self.bias_ih = nn.Parameter(torch.empty(3 * hidden_size))
+        self.bias_hn = nn.Parameter(torch.empty(hidden_size))
+        bound = 1.0 / math.sqrt(hidden_size)
+        for p in self.parameters():
+            nn.init.uniform_(p, -bound, bound)
+
+    def bias_hh(self, dtype: torch.dtype) -> torch.Tensor:
+        """``[0 | 0 | b_hn]``: the hidden bias in ``nn.GRUCell``'s layout."""
+        b = self.bias_hn.to(dtype)
+        return torch.cat([b.new_zeros(2 * self.hidden_size), b])
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        return torch._VF.gru_cell(
+            x, h.to(dt), self.weight_ih.to(dt), self.weight_hh.to(dt),
+            self.bias_ih.to(dt), self.bias_hh(dt),
+        )
+
+    def _save_to_state_dict(self, destination, prefix, keep_vars):
+        for name in ("weight_ih", "weight_hh", "bias_ih"):
+            p = getattr(self, name)
+            destination[prefix + name] = p if keep_vars else p.detach()
+        b = self.bias_hh(self.bias_hn.dtype)
+        destination[prefix + "bias_hh"] = b if keep_vars else b.detach()
+
+    def _load_from_state_dict(
+        self, state_dict, prefix, local_metadata, strict, missing_keys,
+        unexpected_keys, error_msgs,
+    ):
+        names = ("weight_ih", "weight_hh", "bias_ih", "bias_hh")
+        missing = [prefix + n for n in names if prefix + n not in state_dict]
+        if strict:
+            unexpected_keys.extend(
+                k for k in state_dict
+                if k.startswith(prefix) and k[len(prefix):] not in names
+            )
+        if missing:
+            missing_keys.extend(missing)
+            return
+        h = self.hidden_size
+        with torch.no_grad():
+            b_ih = state_dict[prefix + "bias_ih"].clone()
+            b_hh = state_dict[prefix + "bias_hh"]
+            b_ih[: 2 * h] += b_hh[: 2 * h].to(b_ih)
+            for name, value in (
+                ("weight_ih", state_dict[prefix + "weight_ih"]),
+                ("weight_hh", state_dict[prefix + "weight_hh"]),
+                ("bias_ih", b_ih),
+                ("bias_hn", b_hh[2 * h:]),
+            ):
+                p = getattr(self, name)
+                if p.shape != value.shape:
+                    error_msgs.append(
+                        f"size mismatch for {prefix}{name}: {tuple(value.shape)} "
+                        f"against {tuple(p.shape)}"
+                    )
+                    continue
+                p.copy_(value)
 
 
 class GeometricVideoGenerator(nn.Module):
@@ -48,13 +139,14 @@ class GeometricVideoGenerator(nn.Module):
         self.geometric_info = geometric_info
         self.video_length = video_length
         self.image_size = image_size
-        self.recurrent = nn.GRUCell(dim_z_motion, dim_z_motion)
+        self.recurrent = GRUCell(dim_z_motion, dim_z_motion)
+        self.compute_dtype = torch.float32
 
         n_up = int(math.log2(image_size // 4))  # strided stages after 4x4
         # dim_z -> 8*ngf at 4x4 (ConvTranspose k4 s1 p0 on 1x1), then one
         # stage per doubling with channel multipliers min(8, 2^k) down to 1
         layers = [
-            nn.ConvTranspose2d(self.dim_z, ngf * 8, 4, 1, 0, bias=False),
+            ConvTranspose2d(self.dim_z, ngf * 8, 4, 1, 0, bias=False),
             batch_norm(ngf * 8),
             nn.ReLU(),
         ]
@@ -81,9 +173,8 @@ class GeometricVideoGenerator(nn.Module):
 
     def motion(self, e: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
         """GRU states ``(B, T, dzm)``: ``h_t = GRUCell(e_t, h_{t-1})``."""
-        dtype = self.recurrent.weight_ih.dtype
-        h = h0.to(dtype)
-        e = e.to(dtype)
+        h = h0.to(self.compute_dtype)
+        e = e.to(self.compute_dtype)
         states = []
         for t in range(e.shape[1]):
             h = self.recurrent(e[:, t], h)
@@ -98,21 +189,28 @@ class GeometricVideoGenerator(nn.Module):
         z_c = z_content.to(z_m.dtype)[:, None, :].expand(-1, z_m.shape[1], -1)
         return torch.cat([z_c, z_m], dim=-1)
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
+    def decode(
+        self, z: torch.Tensor, train: bool = False, update_stats: bool = True
+    ) -> torch.Tensor:
         """Decode per-frame latents ``(N, dim_z)`` to frames
         ``(N, image_size, image_size, channel)``."""
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm arrives with the training slice; call .eval()"
-            )
-        dtype = self.main[0].weight.dtype
-        x = z.to(dtype).reshape(z.shape[0], -1, 1, 1)
-        x = self.main(x.contiguous(memory_format=torch.channels_last))
+        x = z.to(self.compute_dtype).reshape(z.shape[0], -1, 1, 1)
+        x = x.contiguous(memory_format=torch.channels_last)
+        for layer in self.main:
+            if isinstance(layer, BatchNorm2d):
+                x = layer(x, train, update_stats)
+            else:
+                x = layer(x)
         return x.permute(0, 2, 3, 1)
 
     def forward(
-        self, z_content: torch.Tensor, e: torch.Tensor, h0: torch.Tensor
+        self,
+        z_content: torch.Tensor,
+        e: torch.Tensor,
+        h0: torch.Tensor,
+        train: bool = False,
+        update_stats: bool = True,
     ) -> torch.Tensor:
         """Geometry videos ``(B, T, H, W, C)`` from explicit latents."""
         z = self.latents(z_content, e, h0)
-        return unfold_time(self.decode(fold_time(z)), z.shape[0])
+        return unfold_time(self.decode(fold_time(z), train, update_stats), z.shape[0])

@@ -1,20 +1,37 @@
 """Shared layers and initialisers.
 
-Counterpart of ``dcvgan_tpu/models/layers.py`` for the layers the sampling
-path uses. Initialisation follows the reference: 2D convs and transposed
-convs N(0, 0.02), BatchNorm2d scale N(1, 0.02) and bias 0, the GRU cell
-U(+-1/sqrt(hidden)). Every initialiser takes an explicit ``torch.Generator``.
+Counterpart of ``dcvgan_tpu/models/layers.py``. Initialisation follows the
+reference: 2D convs and transposed convs N(0, 0.02), BatchNorm2d scale
+N(1, 0.02) and bias 0, the GRU cell U(+-1/sqrt(hidden)); 3D convs and their
+BatchNorms keep torch's defaults (U(+-1/sqrt(fan_in)), scale 1), because the
+reference's init matches 2D layers only. Every initialiser takes an explicit
+``torch.Generator``.
 
-BatchNorm is torch's own: eps 1e-5 and momentum 0.1 (flax's 0.9). Weights
-that come from the JAX package carry flax's running variance, which is the
-biased batch variance; eval mode reads it as it is, so sampling agrees.
+**Compute dtype.** Parameters are float32 masters; a layer casts its weight
+to its input's dtype on use, as flax's ``nn.Conv(dtype=...)`` does, so the
+input's dtype is the compute dtype, gradients arrive in float32 and Adam
+runs in float32. A module whose parameters were cast once
+(:func:`cast_for_compute`, the serving copy) pays nothing for the cast.
+Each model carries its ``compute_dtype`` and casts its inputs to it.
+
+**BatchNorm** has flax's semantics: it normalises in float32 whatever the
+input's dtype and rounds once; in train mode it uses the biased batch
+variance and stores that *biased* variance in the running statistics with
+momentum 0.9 (torch's 0.1), where torch would store the unbiased one.
+Whether a train-mode forward writes the running statistics is an explicit
+argument: the train step decides which of its forwards do.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+BN_MOMENTUM = 0.1  # torch's convention: new = (1 - m) * old + m * batch
 
 
 def conv2d_kernel_init_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -35,7 +52,8 @@ def uniform_symmetric_init_(
 
 
 def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
-    """Reference init of every 2D conv, transposed conv and BatchNorm2d."""
+    """Reference init of every 2D conv, transposed conv and BatchNorm2d, and
+    torch's default init of every 3D conv and BatchNorm3d."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
@@ -43,11 +61,82 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
             elif isinstance(m, nn.BatchNorm2d):
                 bn2d_scale_init_(m.weight, generator)
                 m.bias.zero_()
+            elif isinstance(m, nn.Conv3d):
+                # kaiming_uniform(a=sqrt(5)) is U(+-1/sqrt(fan_in))
+                fan_in = m.weight[0].numel()
+                uniform_symmetric_init_(m.weight, 1.0 / math.sqrt(fan_in), generator)
+            elif isinstance(m, nn.BatchNorm3d):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
 
 
-def batch_norm(num_features: int) -> nn.BatchNorm2d:
-    """BatchNorm2d with the reference's eps 1e-5 and torch momentum 0.1."""
-    return nn.BatchNorm2d(num_features, eps=1e-5, momentum=0.1)
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that casts its weight to the input's dtype on use."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
+
+
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` that casts its weight to the input's dtype on use."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` that casts its weight to the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(
+            x, self.weight.to(x.dtype), None, self.stride, self.padding,
+            self.output_padding, self.groups, self.dilation,
+        )
+
+
+class _FlaxBatchNorm:
+    """Forward shared by :class:`BatchNorm2d` and :class:`BatchNorm3d`."""
+
+    def forward(
+        self, x: torch.Tensor, train: bool = False, update_stats: bool = True
+    ) -> torch.Tensor:
+        """Eval mode (``train=False``) normalises with the running statistics.
+        Train mode normalises with the batch's mean and biased variance, in
+        float32, and, when ``update_stats``, moves the running statistics
+        towards them (the biased variance, as flax stores it)."""
+        if not train:
+            return F.batch_norm(
+                x, self.running_mean, self.running_var, self.weight, self.bias,
+                False, 0.0, self.eps,
+            )
+        out, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps
+        )
+        if update_stats:
+            with torch.no_grad():
+                # invstd = rsqrt(var + eps) with the biased variance
+                var = (invstd.float().pow(-2) - self.eps).clamp_(min=0.0)
+                self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean.float(), alpha=BN_MOMENTUM)
+                self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
+        return out
+
+
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
+    pass
+
+
+def batch_norm(num_features: int) -> BatchNorm2d:
+    """BatchNorm over (N, H, W) with the reference's eps 1e-5."""
+    return BatchNorm2d(num_features, eps=1e-5, momentum=BN_MOMENTUM)
+
+
+def batch_norm3d(num_features: int) -> BatchNorm3d:
+    """BatchNorm over (N, T, H, W) with the reference's eps 1e-5."""
+    return BatchNorm3d(num_features, eps=1e-5, momentum=BN_MOMENTUM)
 
 
 def fold_batch_norm(bn: nn.BatchNorm2d) -> tuple[torch.Tensor, torch.Tensor]:
@@ -58,30 +147,94 @@ def fold_batch_norm(bn: nn.BatchNorm2d) -> tuple[torch.Tensor, torch.Tensor]:
     return scale, shift
 
 
+class Noise(nn.Module):
+    """Additive Gaussian noise, ``x + sigma * N(0, 1)``, whenever
+    ``use_noise`` is set: a static flag, applied in train and eval alike.
+
+    The unit-normal draw is ``noise`` when given (shaped like ``x``), else it
+    comes from ``generator``.
+    """
+
+    def __init__(self, use_noise: bool, sigma: float = 0.2):
+        super().__init__()
+        self.use_noise = use_noise
+        self.sigma = sigma
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        if not self.use_noise:
+            return x
+        if noise is None:
+            noise = torch.randn(x.shape, generator=generator, device=x.device)
+        # sigma rounded to the compute dtype first, as the JAX package does
+        sigma = torch.tensor(self.sigma).to(x.dtype).item()
+        return x + noise.to(x.dtype) * sigma
+
+
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope)
 
 
-def same_pad_conv(in_ch: int, out_ch: int) -> nn.Conv2d:
+def same_pad_conv(in_ch: int, out_ch: int) -> Conv2d:
     """Conv k4 s2 p1: halves H and W exactly."""
-    return nn.Conv2d(in_ch, out_ch, 4, 2, 1, bias=False)
+    return Conv2d(in_ch, out_ch, 4, 2, 1, bias=False)
 
 
-def up_conv(in_ch: int, out_ch: int) -> nn.ConvTranspose2d:
+def time_valid_conv3d(in_ch: int, out_ch: int) -> Conv3d:
+    """The video critics' conv: kernel 4, strides (1, 2, 2), padding
+    (0, 1, 1), no bias: valid in time (T -> T - 3), halved in space."""
+    return Conv3d(in_ch, out_ch, 4, (1, 2, 2), (0, 1, 1), bias=False)
+
+
+def up_conv(in_ch: int, out_ch: int) -> ConvTranspose2d:
     """Transposed conv k4 s2 p1: doubles H and W exactly."""
-    return nn.ConvTranspose2d(in_ch, out_ch, 4, 2, 1, bias=False)
+    return ConvTranspose2d(in_ch, out_ch, 4, 2, 1, bias=False)
+
+
+def _channels_last_(module: nn.Module) -> None:
+    """Conv weights into channels-last memory (4D and 5D), in place, with
+    ``Tensor.to(memory_format=...)``: it writes channels-last strides even
+    where one input channel makes both layouts coincide (``contiguous``
+    would leave such a weight's strides as they are). cuDNN picks the
+    output's layout from the strides, and a weight left looking contiguous
+    turns the activations after it back to NCHW, with a copy before every
+    channels-last conv."""
+    for p in module.parameters():
+        if p.dim() == 4:
+            p.data = p.data.to(memory_format=torch.channels_last)
+        elif p.dim() == 5:
+            p.data = p.data.to(memory_format=torch.channels_last_3d)
 
 
 def cast_for_compute(
     module: nn.Module, device: torch.device, dtype: torch.dtype
 ) -> nn.Module:
-    """Move ``module`` to ``device`` in ``dtype``, channels-last. BatchNorm
-    parameters and running statistics stay float32: the JAX package keeps
-    them in f32 and normalises in f32 whatever the compute dtype."""
-    module.to(device=device, dtype=dtype, memory_format=torch.channels_last)
+    """The serving placement: move ``module`` to ``device`` with its
+    parameters cast once to ``dtype``, channels-last, and make ``dtype`` its
+    compute dtype. BatchNorm parameters and running statistics stay float32:
+    the JAX package keeps them in f32 and normalises in f32 whatever the
+    compute dtype."""
+    module.to(device=device, dtype=dtype)
     for m in module.modules():
-        if isinstance(m, nn.BatchNorm2d):
+        if isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
             m.float()
+    _channels_last_(module)
+    module.compute_dtype = dtype
+    return module
+
+
+def place_for_training(
+    module: nn.Module, device: torch.device, dtype: torch.dtype
+) -> nn.Module:
+    """The training placement: move ``module`` to ``device`` with float32
+    master parameters, channels-last, and make ``dtype`` its compute dtype."""
+    module.to(device=device, dtype=torch.float32)
+    _channels_last_(module)
+    module.compute_dtype = dtype
     return module
 
 

@@ -68,3 +68,11 @@ def for_step(gen: torch.Generator, step: int) -> torch.Generator:
 def named(gen: torch.Generator, name: str) -> torch.Generator:
     """A stably named generator derived from ``gen``'s seed."""
     return _generator(_mix(gen.initial_seed(), 1 << 32 | _NAMED_TAGS[name]), gen.device)
+
+
+def on_device(gen: torch.Generator, device: Union[str, torch.device]) -> torch.Generator:
+    """A generator with ``gen``'s seed on ``device`` (``gen`` itself when it
+    is there already). The numbers drawn differ between device types."""
+    if gen.device == torch.device(device):
+        return gen
+    return _generator(gen.initial_seed(), device)

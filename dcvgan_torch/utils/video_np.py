@@ -1,5 +1,6 @@
-"""Numpy video utilities for the sampler: the port's own copy of the two
-helpers of ``dcvgan_tpu/utils/video_np.py`` that sampling needs.
+"""Numpy video utilities for the sampler and the trainer's sample logging:
+the port's own copy of the helpers of ``dcvgan_tpu/utils/video_np.py`` that
+they need.
 
 Videos are channels-last ``(B, T, H, W, C)``.
 """
@@ -16,6 +17,24 @@ def videos_to_uint8(videos: np.ndarray) -> np.ndarray:
         return videos
     videos = np.clip(videos.astype(np.float32), -1, 1)
     return ((videos + 1) / 2 * 255).astype(np.uint8)
+
+
+def ensure_float_video(videos: np.ndarray) -> np.ndarray:
+    """uint8 [0, 255] -> float32 [-1, 1]; float passes through."""
+    videos = np.asarray(videos)
+    if videos.dtype == np.uint8:
+        return videos.astype(np.float32) / 127.5 - 1.0
+    return videos.astype(np.float32)
+
+
+def make_video_grid(videos: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    """(N, T, H, W, C) -> (1, T, rows*H, cols*W, C) tiled grid."""
+    n, t, h, w, c = videos.shape
+    assert n == rows * cols, (n, rows, cols)
+    v = videos.reshape(rows, cols, t, h, w, c)
+    v = v.transpose(2, 0, 3, 1, 4, 5)  # (T, rows, H, cols, W, C)
+    v = v.reshape(t, rows * h, cols * w, c)
+    return v[None]
 
 
 def visualize_optical_flow(flow_video: np.ndarray) -> np.ndarray:

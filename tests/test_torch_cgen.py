@@ -98,13 +98,19 @@ def test_forward_videos_repeats_the_latent_over_time():
 
 
 def test_train_mode_raises():
+    # train mode runs unfused on batch statistics, selected by the argument
+    # and not by .training; what raises is a wrong number of dropout masks
     pm = PortCGen(in_ch=1, dim_z=DZ, ngf=NGF)
-    x, z = nchw(np.zeros((1, 64, 64, 1), np.float32)), torch.zeros(1, DZ)
-    with pytest.raises(NotImplementedError):
-        pm(x, z)  # a fresh module is in train mode
-    pm.eval()
-    with pytest.raises(NotImplementedError):
-        pm(x, z, train=True)
+    pm.reset_parameters(torch.Generator().manual_seed(0))
+    cast_for_compute(pm, torch.device("cpu"), torch.float32)
+    x, z = _inputs(1, 8)
+    x, z = nchw(x), torch.from_numpy(z)
+    with torch.no_grad():
+        ev = pm(x, z)  # a fresh module's .training flag is set: eval all the same
+        tr = pm(x, z, train=True, update_stats=False, generator=torch.Generator().manual_seed(1))
+        with pytest.raises(IndexError):
+            pm(x, z, train=True, update_stats=False, dropout_masks=[])
+    assert tr.shape == ev.shape and not torch.allclose(tr, ev)
 
 
 def test_state_dict_names_are_the_reference_modules():

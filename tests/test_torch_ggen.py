@@ -103,6 +103,15 @@ def test_segmentation_softmax_head():
 
 
 def test_train_mode_raises():
+    # train mode runs on batch statistics, selected by the argument and not
+    # by .training; what raises is an argument the decoder does not have
     pm = PortGGen(dim_z_content=DZC, dim_z_motion=DZM, ngf=NGF, video_length=T)
-    with pytest.raises(NotImplementedError):
-        pm.decode(torch.zeros(1, DZC + DZM))
+    z = torch.from_numpy(_latents(7)[2])
+    with torch.no_grad():
+        ev = pm.decode(z)
+        pm.eval()
+        assert torch.equal(pm.decode(z), ev)
+        tr = pm.decode(z, train=True, update_stats=False)
+    assert tr.shape == ev.shape and not torch.allclose(tr, ev)
+    with pytest.raises(TypeError):
+        pm.decode(z, training=True)

@@ -9,8 +9,10 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
    TF32 is switched off for cuDNN and matmul, so f32 comparisons are f32;
 2. build every kernel under ``dcvgan_torch/csrc`` with nvcc;
 3. hold each kernel (``fused_norm_act_conv``, ``dequantize_video``) against
-   its plain PyTorch version on the card at the main paths' shapes, and time
-   kernel, plain version, one library call where there is one, and the bound;
+   its plain PyTorch version on the card at the main paths' shapes and at
+   edge shapes, and time kernel, plain version, one library call where there
+   is one, and the bound; the bf16 ``fused_norm_act_conv`` is timed on its
+   TMA route and on the mma.sync kernel of the other route in turns;
 4. the serving path: ``dcvgan_torch.cli.serve``'s ``serve()`` and
    ``GenerationServer.generate`` at the flagship width
    (``configs/mug-depth.yml``: depth, ngf 64, bf16, batch 256, seeded weights),
@@ -118,11 +120,23 @@ def site_bound(n: int, h: int, c: int, cout: int, dtype: torch.dtype, xn: bool):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
 
-def kernel_inputs(n, h, c, cout, dtype, seed, shift_offset=0.0):
+# (label, N, H, W, C, Cout, route): shapes at the TMA route's edges, and one
+# it cannot take; the route each must take
+EDGE_CASES = [
+    ("partial last tile, odd tile count", 3, 16, 16, 128, 256, "tma"),
+    ("down5's 2x2 input, 3 tiles", 300, 2, 2, 256, 256, "tma"),
+    ("OW < 8, W != H", 5, 4, 12, 64, 64, "tma"),
+    ("C = 8, one zero-filled half chunk", 7, 6, 6, 8, 16, "tma"),
+    ("OH*OW = 15, tiles across images", 40, 6, 10, 64, 64, "tma"),
+    ("C = 12: the mma.sync route", 3, 8, 8, 12, 8, "mma_sync"),
+]
+
+
+def kernel_inputs(n, h, c, cout, dtype, seed, shift_offset=0.0, w=None):
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     cl = torch.channels_last
-    x = torch.randn(n, c, h, h, generator=g, device="cuda").to(dtype).contiguous(memory_format=cl)
+    x = torch.randn(n, c, h, w or h, generator=g, device="cuda").to(dtype).contiguous(memory_format=cl)
     w = (torch.randn(cout, c, 4, 4, generator=g, device="cuda") / (16 * c) ** 0.5)
     w = w.to(dtype).contiguous(memory_format=cl)
     scale = torch.rand(c, generator=g, device="cuda") + 0.5
@@ -130,9 +144,10 @@ def kernel_inputs(n, h, c, cout, dtype, seed, shift_offset=0.0):
     return x, scale, shift, w
 
 
-def check_kernel(fused, plain, n, h, c, cout, dtype, xn, slope=0.2, shift_offset=0.0):
+def check_kernel(fused, plain, n, h, c, cout, dtype, xn, slope=0.2, shift_offset=0.0, width=None):
     """Kernel against plain version on the same inputs; returns max |diff|."""
-    x, scale, shift, w = kernel_inputs(n, h, c, cout, dtype, seed=h * 7 + c, shift_offset=shift_offset)
+    x, scale, shift, w = kernel_inputs(n, h, c, cout, dtype, seed=h * 7 + c, shift_offset=shift_offset,
+                                       w=width)
     xn_k = torch.empty_like(x) if xn else None
     xn_p = torch.empty_like(x) if xn else None
     got = fused(x, scale, shift, w, slope, xn_out=xn_k)
@@ -159,7 +174,8 @@ def check_kernel(fused, plain, n, h, c, cout, dtype, xn, slope=0.2, shift_offset
 def phase_kernels() -> dict:
     import torch.nn.functional as F
 
-    from dcvgan_torch.ops.fused_block import fused_norm_act_conv, reference_norm_act_conv
+    from dcvgan_torch.ops.fused_block import (
+        Plan, fused_norm_act_conv, launch, plan_for, reference_norm_act_conv)
 
     errs = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -175,6 +191,17 @@ def phase_kernels() -> dict:
                          dtype, True, slope=0.01, shift_offset=1.0)
         errs.append(e)
         print(f"check slope 0.01 shift+1 {str(dtype)[6:]}: max|diff| {e:.3e}", flush=True)
+    for label, n, h, w, c, cout, want_route in EDGE_CASES:
+        x, _, _, wt = kernel_inputs(n, h, c, cout, torch.bfloat16, seed=0, w=w)
+        route = plan_for(x, wt, torch.empty(n, cout, h // 2, w // 2, dtype=x.dtype, device="cuda",
+                                            memory_format=torch.channels_last)).route
+        if route != want_route:
+            raise AssertionError(f"edge case {label!r} takes the {route} route, not {want_route}")
+        e = check_kernel(fused_norm_act_conv, reference_norm_act_conv, n, h, c, cout, torch.bfloat16,
+                         True, shift_offset=0.5, width=w)
+        errs.append(e)
+        print(f"check edge bf16 {label} (N={n} {h}x{w} C={c} Cout={cout}, route {route}): "
+              f"max|diff| {e:.3e}", flush=True)
 
     sites = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -183,14 +210,28 @@ def phase_kernels() -> dict:
             xn = torch.empty_like(x)
             reference_norm_act_conv(x, scale, shift, w, 0.2, xn_out=xn)  # for the library call
             bound, bound_by, flops, nbytes = site_bound(N_FRAMES, h, c, cout, dtype, True)
-            row = {
-                "site": name, "dtype": str(dtype)[6:], "x": [N_FRAMES, h, h, c], "cout": cout,
-                "kernel_ms": cuda_ms(lambda: fused_norm_act_conv(x, scale, shift, w, 0.2, xn_out=xn)),
-                "plain_ms": cuda_ms(lambda: reference_norm_act_conv(x, scale, shift, w, 0.2, xn_out=xn)),
-                "library_ms": cuda_ms(lambda: F.conv2d(xn, w, stride=2, padding=1)),
-                "bound_ms": bound, "bound_by": bound_by, "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
-            }
+            row = {"site": name, "dtype": str(dtype)[6:], "x": [N_FRAMES, h, h, c], "cout": cout}
+            if dtype == torch.bfloat16:
+                # the TMA route against the mma.sync kernel, in turns: old, new, new, old
+                out = torch.empty(N_FRAMES, cout, h // 2, h // 2, dtype=dtype, device="cuda",
+                                  memory_format=torch.channels_last)
+                plan = plan_for(x, w, out, xn)
+                if plan.route != "tma":
+                    raise AssertionError(f"{name} does not take the TMA route: {plan}")
+                old, new = Plan("mma_sync"), plan
+                turns = [cuda_ms(lambda p=p: launch(p, x, scale, shift, w, out, 0.2, xn))
+                         for p in (old, new, new, old)]
+                row.update(kernel_ms=(turns[1] + turns[2]) / 2, old_ms=(turns[0] + turns[3]) / 2,
+                           turns_ms=turns, plan={k: v for k, v in vars(plan).items() if k != "route"})
+            else:
+                row["kernel_ms"] = cuda_ms(lambda: fused_norm_act_conv(x, scale, shift, w, 0.2, xn_out=xn))
+            row.update(
+                plain_ms=cuda_ms(lambda: reference_norm_act_conv(x, scale, shift, w, 0.2, xn_out=xn)),
+                library_ms=cuda_ms(lambda: F.conv2d(xn, w, stride=2, padding=1)),
+                bound_ms=bound, bound_by=bound_by, gflop=flops / 1e9, gbytes=nbytes / 1e9,
+            )
             row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+            row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
             sites.append(row)
             print("time " + json.dumps(row), flush=True)
             del x, xn
@@ -199,7 +240,7 @@ def phase_kernels() -> dict:
     by_kind = {"bytes": 0.0, "operations": 0.0}
     for r in main_path:
         by_kind[r["bound_by"]] += r["bound_ms"]
-    return {
+    entry = {
         "name": "fused_norm_act_conv",
         "route": "cuda",
         "source": "dcvgan_torch/csrc/fused_block.cu",
@@ -212,7 +253,13 @@ def phase_kernels() -> dict:
         "bound_ms": sum(r["bound_ms"] for r in main_path),
         "bound_by": max(by_kind, key=by_kind.get),
         "library_ms": sum(r["library_ms"] for r in main_path),
+        # the mma.sync kernel (the route of shapes TMA cannot take) at the same sites
+        "old_ms": sum(r["old_ms"] for r in main_path),
     }
+    print(f"fused_norm_act_conv bf16, five sites: TMA route {entry['ms']:.4f} ms, mma.sync kernel "
+          f"{entry['old_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms, cuDNN {entry['library_ms']:.4f} ms",
+          flush=True)
+    return entry
 
 
 def redrawn(module, seed: int):
@@ -344,7 +391,7 @@ def phase_slice(card: str) -> int:
 
 # kernel-name fragments -> category, for the profile of one sampling round
 KERNEL_KINDS = [
-    ("fused_norm_act_conv", ("fused_bf16_kernel", "fused_f32_kernel")),
+    ("fused_norm_act_conv", ("fused_tma_kernel", "fused_bf16_kernel", "fused_f32_kernel")),
     ("dequantize_video", ("dequant_kernel",)),
     ("adam (foreach)", ("multi_tensor", "foreach", "Foreach")),
     ("conv / conv-transpose (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad", "fprop")),
@@ -359,26 +406,37 @@ def phase_profile(gan, state, batch: int) -> None:
     ``batch``, and the device's idle share of the round's wall time."""
     from dcvgan_torch import prng
     from dcvgan_torch.cli.serve import quantize
+    from dcvgan_torch.ops.fused_block import fused_norm_act_conv
 
     def round_():
         xg, xc = gan.sample_videos(state, prng.base_key(5, "cuda"), batch)
         return quantize(xg), quantize(xc)
 
-    profile_once(round_, "profile", {"batch": batch})
+    profile_once(round_, "profile", {"batch": batch}, {"fused_norm_act_conv": fused_norm_act_conv})
 
 
-def profile_once(round_, label: str, report: dict) -> None:
-    """Run ``round_`` once warm and once under ``torch.profiler``; print
-    ``label`` and a JSON report of device time by kernel kind."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_once(round_, label: str, report: dict, counted: dict) -> dict:
+    """Run ``round_`` twice under ``torch.profiler``: a warm-up step, traced
+    and discarded (the profiler loses kernels launched just after its trace
+    starts), then the measured step. Print ``label`` and a JSON report of
+    device time by kernel kind; return the device ms and launches of each
+    kernel kind. ``counted`` maps kinds to wrappers with a ``launches``
+    count: the profile must show each wrapper's launches in the measured
+    step, no fewer and no more."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    round_()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True,
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        round_()
+        torch.cuda.synchronize()
+        prof.step()
+        before = {k: fn.launches for k, fn in counted.items()}
         t0 = time.perf_counter()
         round_()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: fn.launches - before[k] for k, fn in counted.items()}
+        prof.step()
     # kernels only: a user annotation (torch's own around an optimizer's step)
     # carries the time of the kernels under it and would count them twice
     kernels = [e for e in prof.key_averages()
@@ -387,10 +445,12 @@ def profile_once(round_, label: str, report: dict) -> None:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     kinds = {name: 0.0 for name, _ in KERNEL_KINDS}
     kinds["elementwise and other"] = 0.0
+    calls = dict.fromkeys(kinds, 0)
     for e in kernels:
         kind = next((name for name, frags in KERNEL_KINDS if any(f in e.key for f in frags)),
                     "elementwise and other")
         kinds[kind] += e.self_device_time_total / 1e3
+        calls[kind] += e.count
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     # each kernel counts once, under the innermost op that launched it
     ops = [e for e in prof.key_averages(group_by_input_shape=True)
@@ -402,6 +462,7 @@ def profile_once(round_, label: str, report: dict) -> None:
         "device_busy_ms": busy_ms,
         "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
         "by_kind_ms": kinds,
+        "by_kind_launches": calls,
         "top_kernels": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3, "calls": e.count}
                         for e in top],
         "top_ops": [{"op": e.key, "shapes": str(e.input_shapes)[:120],
@@ -409,13 +470,28 @@ def profile_once(round_, label: str, report: dict) -> None:
     }
     if not busy_ms:
         print(f"{label}: the profiler recorded no device time (not measured)", flush=True)
-        return
+        return {}
     print(f"{label} " + json.dumps(prof_report), flush=True)
+    for kind, n in launched.items():
+        if calls[kind] != n:
+            raise AssertionError(f"{label}: the profile shows {calls[kind]} {kind} launches, "
+                                 f"the wrapper counted {n}")
+    return {k: (kinds[k], calls[k]) for k in kinds}
 
 
 # the two uint8 batches of one train step at the flagship: (B, T, H, W, C)
 DEQUANT_SHAPES = [("colour", (20, 16, 64, 64, 3)), ("depth", (20, 16, 64, 64, 1))]
 PEAK_F32_OPS = 67e12
+
+
+def dequant_bound_ms(dtype: torch.dtype = torch.bfloat16) -> float:
+    """One train step's two launches: each input read once, each output written once."""
+    es = torch.finfo(dtype).bits // 8
+    n = sum(math.prod(shape) for _, shape in DEQUANT_SHAPES)
+    return max(n * (1 + es) / PEAK_BYTES_PER_S, 2 * n / PEAK_F32_OPS) * 1e3
+
+
+DEQUANT_BOUND_MS = dequant_bound_ms()
 
 
 def phase_dequant() -> dict:
@@ -518,7 +594,7 @@ def train_config(root: Path):
     return cfg
 
 
-def phase_train(card: str) -> int:
+def phase_train(card: str):
     from dcvgan_torch import prng
     from dcvgan_torch.cli.train import build_dataset
     from dcvgan_torch.data.loader import VideoLoader
@@ -640,10 +716,19 @@ def phase_train(card: str) -> int:
 
     st = gan.init_state(cfg.seed)
     dev_batch = trainer.to_device(batches[0])
-    profile_once(lambda: gan.train_step(st, dev_batch, prng.base_key(3, "cuda")),
-                 "train profile", {"batch": cfg.batchsize})
+    kinds = profile_once(lambda: gan.train_step(st, dev_batch, prng.base_key(3, "cuda")),
+                         "train profile", {"batch": cfg.batchsize},
+                         {"dequantize_video": dequantize_video, "fused_norm_act_conv": fused_norm_act_conv})
     tmp.cleanup()
-    return launches
+    if not kinds:
+        return launches, None  # not measured
+    dq_ms, dq_calls = kinds["dequantize_video"]
+    if dq_calls != 2:
+        raise AssertionError(f"the step's profile shows {dq_calls} dequantize_video launches, not 2")
+    print(f"dequant in the train-step profile: {dq_ms * 1e3:.2f} us of device time for the step's "
+          f"{dq_calls} launches, against a bound of {DEQUANT_BOUND_MS * 1e3:.2f} us for the two (bytes "
+          "from device memory; the inputs may sit in L2)", flush=True)
+    return launches, dq_ms
 
 
 def np_equal(a, b) -> bool:
@@ -680,7 +765,11 @@ def main() -> int:
     entry = phase_kernels()
     dequant_entry = phase_dequant()
     entry["launches"] = phase_slice(card)
-    dequant_entry["launches"] = phase_train(card)
+    dequant_entry["launches"], device_ms = phase_train(card)
+    # the kernel's own time: device time in the step's profile; back-to-back
+    # CUDA-event timing of the wrapper measures its host cost
+    dequant_entry["wrapper_ms"] = dequant_entry["ms"]
+    dequant_entry["ms"] = device_ms
 
     print(json.dumps({"kernels": [entry, dequant_entry]}))
     print(card_line())

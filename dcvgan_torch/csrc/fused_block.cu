@@ -10,38 +10,52 @@
 // Pallas kernel does, and is never written to device memory unless the caller
 // passes xn_out (the U-Net skip of the colour generator's down path).
 //
-// Design: an implicit GEMM. M = N*OH*OW output pixels, N_gemm = Cout and
+// All routes are implicit GEMMs: M = N*OH*OW output pixels, N_gemm = Cout and
 // K = 16*C in (kh, kw, c) order, which is the memory order of a channels-last
 // torch Conv2d weight (Cout, C, 4, 4): the weight is read as a row-major
-// Cout x K matrix with no repacking. The TPU kernel's column pairing and
-// 12-slab weight packing were a Mosaic workaround and have no counterpart.
-// A padded tap contributes 0, not leaky_relu(shift): zero padding applies to
-// the activation. Each input pixel's activation is written to xn_out once, by
-// the block that owns output pixel (ih/2, iw/2), on the first Cout tile; the
-// stored value is the one fed to the product.
+// Cout x K matrix (K-major for the tensor cores) with no repacking. A padded
+// tap contributes 0, not leaky_relu(shift): zero padding applies to the
+// activation. Each input pixel's activation is written to xn_out once, by the
+// tile that owns output pixel (ih/2, iw/2), on the first Cout tile; the stored
+// value is the one fed to the product. The route is chosen on the host, by
+// shape, before the launch (ops/fused_block.py: plan):
 //
-// bf16 (the serving path) -- see the bf16 section below: 256 x 128 output
-// tiles, 16-channel slices of the input rows staged once per slice (so the
-// prologue runs once per input element and tile, not once per tap), weights
-// of all 16 taps of a slice staged beside them, cp.async double buffering,
-// mma.sync m16n8k16 with f32 accumulators on ldmatrix-gathered fragments,
-// and the output tile written through shared memory with 16-byte stores.
-// f32: 128 x 128 tiles with the patches staged through registers and FMA on
-// the CUDA cores (the f32 reference path runs in full f32, so no TF32).
+// - bf16, TMA route (the serving path; the section "bf16, TMA" below): a
+//   persistent, warp-specialised kernel. Tiles of 128 output pixels x up to
+//   128 output channels; one producer thread streams the input rows of a
+//   tile (64 channels a stage) and the weights (one tap x 64 channels a
+//   stage) by TMA into mbarrier rings; seven transform warps apply the
+//   prologue in place once per staged element and send the owned rows to
+//   xn_out by TMA store; two consumer warpgroups gather A into registers by
+//   ldmatrix and run wgmma m64nBNk16 with B read from the swizzled weight
+//   stage. Taps that are padding for every pixel of a tile are skipped;
+//   small sites split Cout so the grid covers the card.
+// - bf16, mma.sync route (shapes TMA cannot take: C or Cout not a multiple
+//   of 8 or 16, pointers not 16-byte aligned, rows wider than a TMA box):
+//   256 x 128 tiles, 16-channel slices staged by cp.async, mma.sync m16n8k16.
+// - f32: 128 x 128 tiles with the patches staged through registers and FMA
+//   on the CUDA cores (the f32 reference path runs in full f32, so no TF32).
 //
-// What bounds it on an H100: at the flagship shapes (bf16, N = 4096 frames)
-// the first site (32x32x64 -> 16x16x128) must move about 1.3 GB for
-// 0.26 TFLOP and is bound by memory; the deeper sites do 2-4x more operations
-// per byte and are bound by the tensor cores. This design reads x from device
-// memory about once and writes only the output and the skip, but re-reads
-// the weights from L2 for every 256-pixel tile and runs on mma.sync, which
-// reaches a fraction of the wgmma peak; it stays well above the bound (times
-// in PERF.md). Weight multicast across a cluster, TMA and wgmma are the next
-// steps.
+// What bounds it on an H100 at the flagship shapes (bf16, N = 4096 frames,
+// with xn_out): by bytes from device memory, down1 (32x32x64 -> 16x16x128,
+// 1.3 GB for 0.27 TFLOP), down4 and down5; by the tensor cores, down2 and
+// down3. Measured (PERF.md), the TMA route is held by what each SM must
+// take in: the weights of all 16 taps for every 128-pixel tile (256 KB at
+// down1, 512 KB a 128-channel tile at down2..4) plus the tile's rows, at
+// roughly 25 bytes a cycle per SM from L2. The design keeps x's DRAM traffic
+// at one read and the skip at one write, overlaps the loads, the prologue
+// and the MMAs in separate warps, runs on wgmma, and skips dead taps (3/4 of
+// the work at down5). Weight multicast over a cluster of 2 CTAs halves the
+// L2 reads of the weights but not the bytes each SM takes in; it measured
+// slower at every site, so the kernel has no clusters. Times against the
+// bounds, the mma.sync kernel and cuDNN in PERF.md.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -74,7 +88,7 @@ __device__ __forceinline__ float act(float v, float scale, float shift, float sl
   return f >= 0.f ? f : __fmul_rn(f, slope);
 }
 
-// ---------------------------------------------------------------- bf16 ----
+// ------------------------------------------------------- bf16, mma.sync ----
 //
 // A block of 512 threads owns 256 output pixels x 128 output channels and
 // walks the input channels in 16-channel slices. While slice s multiplies,
@@ -130,6 +144,28 @@ __host__ __device__ inline void region_rows(int m0, int m1, int H, int OH, int O
   const int n0 = q0 / OH, oh0 = q0 % OH, n1 = q1 / OH, oh1 = q1 % OH;
   lo = n0 * H + (oh0 > 0 ? 2 * oh0 - 1 : 0);
   hi = n1 * H + (2 * oh1 + 2 < H ? 2 * oh1 + 2 : H - 1);
+}
+
+// The most input rows any tile of `tile_m` output pixels reads. Tile t starts
+// at pixel t * tile_m, so the tiles' shapes repeat every
+// OH*OW / gcd(tile_m, OH*OW) tiles; only the last may be shorter.
+int max_region_rows(int n, int h, int w_in, int tile_m) {
+  const int OH = h / 2, OW = w_in / 2, ohw = OH * OW, M = n * ohw;
+  int a = tile_m, b = ohw;
+  while (b != 0) {
+    const int r = a % b;
+    a = b;
+    b = r;
+  }
+  const int tiles = (M + tile_m - 1) / tile_m, period = ohw / a;
+  auto rows_of = [&](int t) {
+    int lo, hi;
+    region_rows(t * tile_m, t * tile_m + tile_m < M ? t * tile_m + tile_m : M, h, OH, OW, lo, hi);
+    return hi - lo + 1;
+  };
+  int rows = tiles > 0 ? rows_of(tiles - 1) : 0;
+  for (int t = 0; t < tiles && t < period; ++t) rows = rows_of(t) > rows ? rows_of(t) : rows;
+  return rows;
 }
 
 __global__ void __launch_bounds__(kThreadsB, 1) fused_bf16_kernel(const Args a, int region_cap) {
@@ -380,14 +416,7 @@ __global__ void __launch_bounds__(kThreadsB, 1) fused_bf16_kernel(const Args a, 
 
 // Shared memory the bf16 kernel needs for this shape (the largest region of any tile).
 size_t bf16_smem_bytes(int n, int h, int w_in, int c, int& region_cap) {
-  const int OH = h / 2, OW = w_in / 2, M = n * OH * OW;
-  int rows = 0;
-  for (int m0 = 0; m0 < M; m0 += kBMB) {
-    int lo, hi;
-    region_rows(m0, m0 + kBMB < M ? m0 + kBMB : M, h, OH, OW, lo, hi);
-    rows = hi - lo + 1 > rows ? hi - lo + 1 : rows;
-  }
-  region_cap = rows * w_in;
+  region_cap = max_region_rows(n, h, w_in, kBMB) * w_in;
   const size_t region_bytes = static_cast<size_t>((region_cap + 3) / 4) * 128;
   const size_t pipe = 2 * size_t(kBSlabBytes) + 2 * region_bytes + 32 + 2 * sizeof(float) * c;
   const size_t tile = size_t(kBMB) * kLdOut * sizeof(bf16);
@@ -552,6 +581,572 @@ __global__ void __launch_bounds__(kThreads) fused_f32_kernel(const Args a) {
   }
 }
 
+// ------------------------------------------------------------ bf16, TMA ----
+//
+// A persistent, warp-specialised kernel of 512 threads in three roles:
+// - two consumer warpgroups, 64 output pixels x BN channels each with the
+//   f32 accumulators in registers: for each live tap they gather A from the
+//   transformed region into registers with ldmatrix (rows of padding point
+//   at a zero row: padding is 0 after the prologue) and run wgmma m64nBNk16
+//   with B read from a weight stage, then write the tile straight to `out`;
+// - one producer warp, of which one thread starts every TMA load;
+// - seven transform warps, which apply the prologue in place to each staged
+//   region element once, while the consumers multiply the previous chunk,
+//   and send the rows the tile owns to xn_out (one TMA store per tile and
+//   chunk where tiles hold whole output rows, else 16-byte stores).
+// A "unit" is one 128-pixel M tile at one BN-wide Cout tile: a row of the
+// table the host plans (ops/fused_block.py: tile_table) with its pixels,
+// channels, first staged input row and live taps. CTA b walks units b,
+// b + grid, ..., so one unit's epilogue overlaps the next unit's loads.
+//
+// Two rings in shared memory, with mbarriers:
+// - the region: the input rows a tile reads, 64 channels of them, copied by
+//   one TMA box (channel, column, flattened row) per (tile, chunk); full ->
+//   transformed -> empty. The producer sends a region out as soon as its
+//   stage is free, ahead of the weights of earlier chunks;
+// - the weights: one tap x 64 channels x BN rows per stage, in the 128-byte
+//   swizzled K-major layout a wgmma B descriptor reads; full -> empty.
+// Taps that are padding for every pixel of a unit are skipped by all roles.
+
+namespace tma {
+
+constexpr int kBM = 128;         // output pixels per tile
+constexpr int kCK = 64;          // input channels per stage: 128-byte rows
+constexpr int kRB = 2 * kCK;     // bytes of one staged pixel or weight row
+constexpr int kConsumers = 256;  // two warpgroups
+// Two consumer warpgroups, one producer warp and seven transform warps: with
+// at most 128 output channels a tile, the consumers' 64 f32 accumulators
+// leave registers for two more warpgroups (setmaxnreg: the launch gives 128 a
+// thread; consumers take 160, the others keep 96).
+constexpr int kThreads = 512;
+constexpr int kTransformWarps = kThreads / 32 - kConsumers / 32 - 1;
+constexpr int kAuxRegs = 96, kConsumerRegs = 160;
+static_assert((kThreads - kConsumers) * kAuxRegs + kConsumers * kConsumerRegs <= 65536, "register split");
+constexpr int kRegionStages = 2;
+
+struct Params {
+  const float* scale;
+  const float* shift;
+  bf16* out;
+  bf16* xn_out;  // may be null
+  const int* tiles;  // n_units rows of kTileColumns: the host's tile table
+  int n, h, w, c, cout;
+  float slope;
+  int w_stages, region_rows;
+  int region_bytes, wstage_bytes;  // ring strides, multiples of 1024
+  int zero_off, bar_off;           // byte offsets in shared memory
+  int n_units;
+  int xn_rows;  // input rows of a tile's xn_out box by TMA store; 0: per-thread stores
+};
+
+// The shared-memory layout, from a 1024-byte aligned base: [region x 2]
+// [weight stage x w_stages][zero row][mbarriers]; `total` includes 1024
+// bytes of slack for aligning the base.
+struct Layout {
+  int region_bytes, wstage_bytes, zero_off, bar_off, total;
+};
+
+inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+inline Layout layout(int w, int bn, int w_stages, int region_rows) {
+  Layout l;
+  l.region_bytes = round_up(region_rows * w * kRB, 1024);
+  l.wstage_bytes = round_up(bn * kRB, 1024);
+  l.zero_off = kRegionStages * l.region_bytes + w_stages * l.wstage_bytes;
+  l.bar_off = l.zero_off + 128;
+  l.total = 1024 + l.bar_off + 8 * (3 * kRegionStages + 2 * w_stages);
+  return l;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// TMA's and wgmma's 128-byte swizzle, on byte offsets from a 1024-byte
+// aligned base: 16-byte granule bits [4, 7) ^= bits [7, 10).
+__device__ __forceinline__ uint32_t swz(uint32_t o) { return o ^ ((o >> 3) & 0x70u); }
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Whether the phase with parity `parity` has completed. A thread whose phase
+// is not complete sleeps in try_wait until it completes (or a time limit),
+// so waiting warps leave the schedulers to the warps that work.
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\nselp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity), "r"(0x989680u)
+      : "memory");
+  return done != 0;
+}
+// Whether the phase with parity `parity` has completed, without waiting.
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+// A phase that never completes is a schedule fault: trap (the launch then
+// fails and the wrapper raises) rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > 2000000000ull) __trap();
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A box from shared memory to the tensor at (c0, c1, c2), then the bulk group's waits.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major, swizzled tile: start address,
+// leading offset (unused for swizzled K-major), 8-row stride, layout type.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint64_t layout_type, uint32_t row8_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (static_cast<uint64_t>(row8_bytes >> 4) << 32) | (layout_type << 62);
+}
+
+#define F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+
+// acc(64 x N, f32) += A(64 x 16, bf16 registers) * B(16 x N, bf16 K-major in shared memory)
+template <int N>
+__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : F4(0), F4(4)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : F4(0), F4(4), F4(8), F4(12)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : F4(0), F4(4), F4(8), F4(12), F4(16), F4(20), F4(24), F4(28)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : F4(0), F4(4), F4(8), F4(12), F4(16), F4(20), F4(24), F4(28),
+        F4(32), F4(36), F4(40), F4(44), F4(48), F4(52), F4(56), F4(60)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+#undef F4
+
+// The prologue on one 16-byte granule: 8 channels of x, in place.
+__device__ __forceinline__ uint4 transform8(uint4 v, const float (&sc)[8], const float (&sh)[8], float slope) {
+  uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float lo = __uint_as_float(w[i] << 16), hi = __uint_as_float(w[i] & 0xffff0000u);
+    const __nv_bfloat162 r = __floats2bfloat162_rn(act(lo, sc[2 * i], sh[2 * i], slope),
+                                                   act(hi, sc[2 * i + 1], sh[2 * i + 1], slope));
+    w[i] = *reinterpret_cast<const uint32_t*>(&r);
+  }
+  return v;
+}
+
+constexpr int kTileColumns = 5;  // m0, m1, n0, p_lo, live: ops/fused_block.py TILE_COLUMNS
+
+struct Tile {
+  int m0, m1, n0, p_lo;  // output pixels [m0, m1), channels [n0, n0 + BN), first staged input row
+  uint32_t live;         // taps (bit 4 * kh + kw) that read the image for some pixel of the tile
+};
+
+__device__ __forceinline__ Tile tile_of(int u, const Params& p) {
+  const int* row = p.tiles + kTileColumns * u;
+  return Tile{__ldg(row), __ldg(row + 1), __ldg(row + 2), __ldg(row + 3), static_cast<uint32_t>(__ldg(row + 4))};
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    fused_tma_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+                     const __grid_constant__ CUtensorMap tm_xn, const Params p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sbase = smem_u32(smem);
+  const uint32_t wbase = sbase + kRegionStages * p.region_bytes;
+  const uint32_t zero_addr = sbase + p.zero_off;  // 128 bytes of zeros
+  const uint32_t bars = sbase + p.bar_off;
+  auto r_full = [&](int s) { return bars + 8 * s; };                       // copied
+  auto r_ready = [&](int s) { return bars + 8 * (kRegionStages + s); };    // transformed
+  auto r_empty = [&](int s) { return bars + 8 * (2 * kRegionStages + s); };
+  auto w_full = [&](int s) { return bars + 8 * (3 * kRegionStages + s); };
+  auto w_empty = [&](int s) { return bars + 8 * (3 * kRegionStages + p.w_stages + s); };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid < 32) reinterpret_cast<uint32_t*>(smem + p.zero_off)[tid] = 0u;
+  if (tid == 0) {
+    for (int s = 0; s < kRegionStages; ++s) {
+      mbar_init(r_full(s), 1);
+      mbar_init(r_ready(s), kTransformWarps);
+      mbar_init(r_empty(s), kConsumers / 32 + (p.xn_rows > 0 ? 1 : 0));  // + the xn_out store
+    }
+    for (int s = 0; s < p.w_stages; ++s) {
+      mbar_init(w_full(s), 1);
+      mbar_init(w_empty(s), kConsumers / 32);  // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int OH = p.h / 2, OW = p.w / 2;
+  const int chunks = (p.c + kCK - 1) / kCK;
+  const int u0 = blockIdx.x, stride = gridDim.x;
+
+  if (tid >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kAuxRegs));
+    if (warp == kConsumers / 32) {
+      // ---- producer: one thread starts every copy; the whole warp keeps the
+      // schedule. The region of a chunk goes out as soon as its stage is free,
+      // ahead of the weights of earlier chunks, so the transform warps have it
+      // early; the weights follow as their ring frees up.
+      const uint32_t region_tx = static_cast<uint32_t>(p.region_rows * p.w * kRB);
+      auto next_tap = [](uint32_t live, int tap) {
+        do {
+          ++tap;
+        } while (tap < 16 && !((live >> tap) & 1u));
+        return tap;
+      };
+      // test a barrier on lane 0 and give every lane its answer
+      auto ready = [&](uint32_t bar, uint32_t parity) {
+        return __shfl_sync(0xffffffffu, lane == 0 ? static_cast<int>(mbar_test(bar, parity)) : 0, 0) != 0;
+      };
+      int rs = 0, ws = 0, ru = u0, rc = 0, wu = u0, wc = 0;
+      uint32_t rph = 0, wph = 0;
+      Tile rt = tile_of(ru, p), wt = rt;
+      int wtap = next_tap(wt.live, -1);
+      uint64_t idle_since = 0;
+      while (wu < p.n_units) {
+        bool progress = false;
+        if (ru < p.n_units && ready(r_empty(rs), rph ^ 1)) {
+          if (lane == 0) {
+            mbar_expect_tx(r_full(rs), region_tx);
+            tma_load(sbase + rs * p.region_bytes, &tm_x, r_full(rs), rc * kCK, 0, rt.p_lo);
+          }
+          if (++rs == kRegionStages) {
+            rs = 0;
+            rph ^= 1;
+          }
+          if (++rc == chunks) {
+            rc = 0;
+            ru += stride;
+            if (ru < p.n_units) rt = tile_of(ru, p);
+          }
+          progress = true;
+        }
+        if (ready(w_empty(ws), wph ^ 1)) {
+          if (lane == 0) {
+            mbar_expect_tx(w_full(ws), BN * kRB);
+            tma_load(wbase + ws * p.wstage_bytes, &tm_w, w_full(ws), wc * kCK, wtap, wt.n0);
+          }
+          if (++ws == p.w_stages) {
+            ws = 0;
+            wph ^= 1;
+          }
+          wtap = next_tap(wt.live, wtap);
+          if (wtap == 16) {
+            if (++wc == chunks) {
+              wc = 0;
+              wu += stride;
+              if (wu < p.n_units) wt = tile_of(wu, p);
+            }
+            wtap = next_tap(wt.live, -1);
+          }
+          progress = true;
+        }
+        if (progress) {
+          idle_since = 0;
+        } else {  // nothing free yet: a schedule fault if it lasts, as in mbar_wait
+          const uint64_t now = global_ns();
+          if (idle_since == 0) idle_since = now;
+          if (now - idle_since > 2000000000ull) __trap();
+          __nanosleep(64);
+        }
+      }
+    } else {
+      // ---- transform warps: the prologue in place, and the owner's xn_out
+      const int tt = tid - kConsumers - 32;
+      const int my_j = tt & 7;  // this thread's 16-byte granule of every staged pixel
+      const int px_step = 32 * kTransformWarps / 8;
+      const int n_px = p.region_rows * p.w;
+      const int w_shift = (p.w & (p.w - 1)) == 0 ? __ffs(p.w) - 1 : -1;
+      const int h_shift = (p.h & (p.h - 1)) == 0 ? __ffs(p.h) - 1 : -1;
+      int rs = 0, pending_rs = -1;
+      uint32_t rph = 0;
+      for (int u = u0; u < p.n_units; u += stride) {
+        const Tile t = tile_of(u, p);
+        const bool write_xn = p.xn_out != nullptr && t.n0 == 0;
+        for (int cc = 0; cc < chunks; ++cc) {
+          const int ch = cc * kCK + 8 * my_j;
+          mbar_wait(r_full(rs), rph);
+          if (ch < p.c) {  // channels past C stay 0 (the box's fill), as do their weights
+            unsigned char* region = smem + rs * p.region_bytes;
+            float sc[8], sh[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              sc[e] = __ldg(p.scale + ch + e);
+              sh[e] = __ldg(p.shift + ch + e);
+            }
+            // four granules at a time: independent work that hides the latencies of so few warps
+            for (int px0 = tt >> 3; px0 < n_px; px0 += 4 * px_step) {
+              uint4 v[4] = {};
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int px = px0 + i * px_step;
+                if (px < n_px) v[i] = *reinterpret_cast<const uint4*>(region + swz(px * kRB + 16 * my_j));
+              }
+#pragma unroll
+              for (int i = 0; i < 4; ++i) v[i] = transform8(v[i], sc, sh, p.slope);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int px = px0 + i * px_step;
+                if (px >= n_px) break;
+                *reinterpret_cast<uint4*>(region + swz(px * kRB + 16 * my_j)) = v[i];
+                if (write_xn && p.xn_rows == 0) {  // owned by the tile of output pixel (ih / 2, iw / 2)
+                  const int rr = w_shift >= 0 ? px >> w_shift : px / p.w, iw = px - rr * p.w;
+                  const int row = t.p_lo + rr, n = h_shift >= 0 ? row >> h_shift : row / p.h, ih = row - n * p.h;
+                  const int m_own = (n * OH + (ih >> 1)) * OW + (iw >> 1);
+                  if (m_own >= t.m0 && m_own < t.m1)
+                    *reinterpret_cast<uint4*>(p.xn_out + (static_cast<long long>(row) * p.w + iw) * p.c + ch) = v[i];
+                }
+              }
+            }
+          }
+          // order this thread's writes before the TMA copies that read or refill the stage
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          __syncwarp();
+          if (lane == 0) mbar_arrive(r_ready(rs));
+          if (p.xn_rows > 0) {
+            // xn_out: the rows the tile owns leave by one TMA store. Whole output
+            // rows per tile: output pixels [m0, m1) own input rows 2 * (m0 / OW)
+            // onwards, a box of the transformed region (the store clips at N * H).
+            asm volatile("bar.sync 2, %0;\n" ::"n"(32 * kTransformWarps) : "memory");
+            if (tt == 0) {
+              bulk_wait_read();  // the previous store has read its stage: it may be refilled
+              if (pending_rs >= 0) mbar_arrive(r_empty(pending_rs));
+              if (write_xn) {
+                const int own_lo = 2 * (t.m0 / OW);
+                tma_store(&tm_xn, sbase + rs * p.region_bytes + (own_lo - t.p_lo) * p.w * kRB, cc * kCK, 0, own_lo);
+              }
+            }
+            pending_rs = rs;
+          }
+          if (++rs == kRegionStages) {
+            rs = 0;
+            rph ^= 1;
+          }
+        }
+      }
+      if (tt == 0 && p.xn_rows > 0) bulk_wait_all();
+    }
+  } else {
+    // ---- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int row_in_tile = 64 * (warp >> 2) + 16 * (warp & 3);  // this warp's 16 rows
+    // descriptor of weight stage 0; stage s adds s * wstage_bytes, k step kk adds 32 bytes
+    const uint64_t desc0 = smem_desc(wbase, 1, 8 * kRB);
+    const uint32_t desc_stage = static_cast<uint32_t>(p.wstage_bytes) >> 4;
+    int rs = 0, ws = 0;
+    uint32_t rph = 0, wph = 0;
+    float acc[BN / 2];
+    uint32_t af[2][4][4];  // A fragments of a tap's 4 k steps, double-buffered over taps
+
+    auto release_w = [&](int s) {
+      if (lane == 0) mbar_arrive(w_empty(s));
+    };
+
+    for (int u = u0; u < p.n_units; u += stride) {
+      const Tile t = tile_of(u, p);
+      // this lane's A row: byte offset of tap (0, 0) in the region, valid kh / kw bits
+      int a_off = 0;
+      uint32_t a_valid = 0;  // bits 0-3: kh valid, bits 4-7: kw valid
+      {
+        const int m = t.m0 + row_in_tile + (lane & 15);
+        if (m < t.m1) {
+          const int n = m / (OH * OW), r = m - n * (OH * OW), oh = r / OW, ow = r - oh * OW;
+          a_off = ((n * p.h + 2 * oh - 1 - t.p_lo) * p.w + 2 * ow - 1) * kRB + 16 * (lane >> 4);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (2 * oh - 1 + k >= 0 && 2 * oh - 1 + k < p.h) a_valid |= 1u << k;
+            if (2 * ow - 1 + k >= 0 && 2 * ow - 1 + k < p.w) a_valid |= 16u << k;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      int prev_ws = -1, buf = 0;
+
+      // A of one tap into af[B] (4 ldmatrix), then its 4 wgmmas on weight stage ws
+      auto tap_mma = [&](auto bsel, uint32_t region_addr, int tap) {
+        constexpr int B = decltype(bsel)::value;
+        const int kh = tap >> 2, kw = tap & 3;
+        const bool ok = ((a_valid >> kh) & (a_valid >> (4 + kw)) & 1u) != 0;
+        const uint32_t a = ok ? region_addr + swz(static_cast<uint32_t>(a_off + (kh * p.w + kw) * kRB)) : zero_addr;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) ldmatrix_x4(af[B][kk], a ^ (32u * kk));
+        mbar_wait(w_full(ws), wph);
+        const uint64_t desc = desc0 + static_cast<uint64_t>(ws * desc_stage);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<BN>(acc, af[B][kk], desc + 2 * kk, 1);
+        wgmma_commit();
+      };
+
+      for (int cc = 0; cc < chunks; ++cc) {
+        mbar_wait(r_ready(rs), rph);
+        const uint32_t region_addr = sbase + rs * p.region_bytes;
+        for (int tap = 0; tap < 16; ++tap) {
+          if (!((t.live >> tap) & 1u)) continue;
+          if (buf == 0) {
+            tap_mma(std::integral_constant<int, 0>{}, region_addr, tap);
+          } else {
+            tap_mma(std::integral_constant<int, 1>{}, region_addr, tap);
+          }
+          buf ^= 1;
+          wgmma_wait<1>();  // the previous tap's wgmmas are done: free its stage
+          if (prev_ws >= 0) release_w(prev_ws);
+          prev_ws = ws;
+          if (++ws == p.w_stages) {
+            ws = 0;
+            wph ^= 1;
+          }
+        }
+        __syncwarp();  // this warp's ldmatrix reads of the region are done
+        if (lane == 0) mbar_arrive(r_empty(rs));
+        if (++rs == kRegionStages) {
+          rs = 0;
+          rph ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      if (prev_ws >= 0) release_w(prev_ws);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+
+      // epilogue: fragment (row g / g + 8, columns 8j + 2q, +1) straight to out
+      const int g = lane >> 2, q = lane & 3;
+      const int r0 = t.m0 + row_in_tile + g;
+      bf16* o = p.out + static_cast<long long>(r0) * p.cout + t.n0 + 2 * q;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        if (r0 < t.m1)
+          *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) = __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+        if (r0 + 8 < t.m1)
+          *reinterpret_cast<__nv_bfloat162*>(o + 8 * p.cout + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda; reach it through the runtime, no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 3-D bf16 map, dims innermost first, strides of dims 1 and 2 in bytes.
+bool encode_3d(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[3], const cuuint64_t (&strides)[2],
+               const cuuint32_t (&box)[3], CUtensorMapSwizzle swizzle) {
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN>
+int launch(const CUtensorMap& tm_x, const CUtensorMap& tm_w, const CUtensorMap& tm_xn, const Params& p, int grid,
+           int smem, cudaStream_t s) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(fused_tma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_tma_kernel<BN><<<static_cast<unsigned>(grid), kThreads, static_cast<size_t>(smem), s>>>(tm_x, tm_w, tm_xn, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tma
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x (n, h, w, c), xn_out (same or null) and
@@ -597,4 +1192,81 @@ extern "C" int dcvgan_fused_norm_act_conv(int dtype, const void* x, const void* 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The TMA route (bf16 only), with the schedule planned on the host
+// (dcvgan_torch/ops/fused_block.py: plan, tile_table): bn output channels per
+// tile, w_stages weight stages, region_rows input rows per staged region,
+// `tiles` the device copy of the n_units x kTileColumns int32 tile table,
+// `grid` CTAs and `smem` bytes of dynamic shared memory. Returns
+// cudaGetLastError(), -2 when `smem` is not this source's layout for the
+// plan, -3 when libcuda has no cuTensorMapEncodeTiled, -4 when a tensor map
+// is refused, -5 when region_rows is fewer than the rows a tile reads.
+extern "C" int dcvgan_fused_norm_act_conv_tma(const void* x, const void* scale, const void* shift, const void* w,
+                                              void* out, void* xn_out, int n, int h, int w_in, int c, int cout,
+                                              float slope, int bn, int w_stages, int region_rows,
+                                              const void* tiles, int n_units, int grid, int smem, void* stream) {
+  using namespace tma;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+                         reinterpret_cast<uintptr_t>(xn_out) | reinterpret_cast<uintptr_t>(out);
+  const int m_tiles = static_cast<int>((static_cast<long long>(n) * (h / 2) * (w_in / 2) + tma::kBM - 1) / tma::kBM);
+  const bool ok = c % 8 == 0 && bn >= 16 && bn <= 128 && cout % bn == 0 && w_stages >= 1 && region_rows >= 1 &&
+                  region_rows <= 256 && w_in <= 256 && n_units == m_tiles * (cout / bn) && grid >= 1 &&
+                  grid <= n_units && tiles != nullptr && ptrs % 16 == 0;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (region_rows < max_region_rows(n, h, w_in, tma::kBM)) return -5;
+  const Layout l = layout(w_in, bn, w_stages, region_rows);
+  if (l.total != smem) return -2;
+  if (encode_tiled() == nullptr) return -3;
+  const CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B;
+  const cuuint64_t es = 2;
+  CUtensorMap tm_x, tm_w, tm_xn;
+  // x as (C, W, N * H): a box is 64 channels of region_rows whole rows
+  if (!encode_3d(&tm_x, x, {cuuint64_t(c), cuuint64_t(w_in), cuuint64_t(n) * h},
+                 {c * es, cuuint64_t(w_in) * c * es},
+                 {cuuint32_t(kCK), cuuint32_t(w_in), cuuint32_t(region_rows)}, swizzle))
+    return -4;
+  // w as (C, 16 taps, Cout): a box is 64 channels of one tap for bn output channels
+  if (!encode_3d(&tm_w, w, {cuuint64_t(c), 16, cuuint64_t(cout)}, {c * es, 16 * c * es},
+                 {cuuint32_t(kCK), 1, cuuint32_t(bn)}, swizzle))
+    return -4;
+  Params p;
+  p.scale = static_cast<const float*>(scale);
+  p.shift = static_cast<const float*>(shift);
+  p.out = static_cast<bf16*>(out);
+  p.xn_out = static_cast<bf16*>(xn_out);
+  p.tiles = static_cast<const int*>(tiles);
+  p.n = n;
+  p.h = h;
+  p.w = w_in;
+  p.c = c;
+  p.cout = cout;
+  p.slope = slope;
+  p.w_stages = w_stages;
+  p.region_rows = region_rows;
+  p.region_bytes = l.region_bytes;
+  p.wstage_bytes = l.wstage_bytes;
+  p.zero_off = l.zero_off;
+  p.bar_off = l.bar_off;
+  p.n_units = n_units;
+  // xn_out by TMA store when every tile starts on an output row (128 % OW == 0)
+  // and its owned rows start 1024-byte aligned in the staged region (rows of
+  // 8 or more pixels, or tiles of whole images)
+  const int ow = w_in / 2, ohw = (h / 2) * ow;
+  const bool rows_ok = tma::kBM % ow == 0 && 2 * (tma::kBM / ow) <= 256 && (w_in % 8 == 0 || tma::kBM % ohw == 0);
+  p.xn_rows = xn_out != nullptr && rows_ok ? 2 * (tma::kBM / ow) : 0;
+  tm_xn = tm_x;  // unused unless xn_rows > 0
+  if (p.xn_rows > 0 &&
+      !encode_3d(&tm_xn, xn_out, {cuuint64_t(c), cuuint64_t(w_in), cuuint64_t(n) * h},
+                 {c * es, cuuint64_t(w_in) * c * es}, {cuuint32_t(kCK), cuuint32_t(w_in), cuuint32_t(p.xn_rows)},
+                 swizzle))
+    return -4;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bn) {
+    case 16: return launch<16>(tm_x, tm_w, tm_xn, p, grid, smem, s);
+    case 32: return launch<32>(tm_x, tm_w, tm_xn, p, grid, smem, s);
+    case 64: return launch<64>(tm_x, tm_w, tm_xn, p, grid, smem, s);
+    case 128: return launch<128>(tm_x, tm_w, tm_xn, p, grid, smem, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

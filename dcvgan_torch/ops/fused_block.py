@@ -17,6 +17,15 @@ the launch in ``fused_norm_act_conv.launches``; on a CPU tensor it runs
 :func:`reference_norm_act_conv`, the plain version. There is no fallback
 from the one to the other.
 
+The kernel's schedule is planned here, by shape, before the launch
+(:func:`plan`): the route (``tma`` for bf16 shapes the TMA kernel takes,
+``mma_sync`` for other bf16 shapes, ``f32``), and for ``tma`` the tile
+size, the ring depths, the grid, the shared memory and the table of tiles
+the kernel walks (:func:`tile_table`: each tile's pixels, channels, staged
+rows and live taps), which the wrapper copies to the card once per shape.
+The CUDA source checks the shared memory against its own layout and the
+staged rows against its own count of the rows a tile reads.
+
 Layouts are torch's: ``x`` is (N, C, H, W) and the weight (Cout, C, 4, 4),
 both in ``torch.channels_last`` memory format, so the kernel reads NHWC with
 contiguous channels and the weight as a Cout x (4*4*C) matrix.
@@ -25,7 +34,9 @@ contiguous channels and the weight as a Cout x (4*4*C) matrix.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -35,6 +46,139 @@ from dcvgan_torch.ops import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CL = torch.channels_last
+
+
+# ---------------------------------------------------------------- the plan --
+
+TILE_M = 128  # output pixels per TMA tile: two consumer warpgroups of 64 rows
+SMEM_LIMIT = 232_448  # dynamic shared memory one block may opt into on Hopper
+CHUNK = 64  # input channels per pipeline stage: 128-byte rows, TMA's widest swizzle
+REGION_STAGES = 2
+MAX_W_STAGES = 8
+MIN_W_STAGES = 2
+H100_SMS = 132
+# the columns of a tile-table row, as the kernel reads them
+TILE_COLUMNS = ("m0", "m1", "n0", "p_lo", "live")
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one call runs: ``route`` and, for ``tma``, the kernel's schedule."""
+
+    route: str  # "tma", "mma_sync" (other bf16 shapes) or "f32"
+    bn: int = 0  # output channels per tile (divides Cout, at most 128)
+    w_stages: int = 0  # weight ring depth: one tap x CHUNK channels x bn rows each
+    region_rows: int = 0  # flattened input rows staged per tile and chunk
+    grid: int = 0  # CTAs, persistent: CTA b runs units b, b + grid, ...
+    smem: int = 0  # dynamic shared memory bytes (the CUDA layout's, checked there)
+    m_tiles: int = 0
+    units: int = 0  # m_tiles x (Cout / bn): the rows of :func:`tile_table`
+
+
+@functools.lru_cache(maxsize=64)
+def _m_tiles(n: int, h: int, w: int) -> torch.Tensor:
+    """One row per TILE_M-pixel M tile: m0, m1, the first and last flattened
+    input row (n * H + ih) its output pixels read, and its live taps (bit
+    ``4 * kh + kw`` set when tap (kh, kw) reads the image for some pixel of
+    the tile; the others multiply only padding, 0 after the prologue).
+
+    The tiles' shapes repeat every ``period`` tiles (a whole number of
+    images), so the live taps are found over one period and the last tile."""
+    oh, ow = h // 2, w // 2
+    m = n * oh * ow
+    mt = -(-m // TILE_M)
+    m0 = torch.arange(mt, dtype=torch.int64) * TILE_M
+    m1 = torch.clamp(m0 + TILE_M, max=m)
+    q0, q1 = m0 // ow, (m1 - 1) // ow  # flattened output rows
+    lo = q0 // oh * h + torch.clamp(2 * (q0 % oh) - 1, min=0)
+    hi = q1 // oh * h + torch.clamp(2 * (q1 % oh) + 2, max=h - 1)
+
+    def live(first: int, count: int) -> torch.Tensor:
+        """Live taps of tiles first .. first + count - 1."""
+        px = first * TILE_M + torch.arange(count * TILE_M)
+        r = px % (oh * ow)
+        ph, pw = r // ow, r % ow
+        rows = 6 | (ph >= 1).long() | ((2 * ph + 2 < h).long() << 3)
+        cols = 6 | (pw >= 1).long() | ((2 * pw + 2 < w).long() << 3)
+        mask = sum(((rows >> k) & 1) * (cols << (4 * k)) for k in range(4))
+        mask = torch.where(px < m, mask, 0).reshape(count, TILE_M)
+        return sum(((mask >> b) & 1).amax(1) << b for b in range(16))
+
+    period = oh * ow // math.gcd(TILE_M, oh * ow)
+    taps = live(0, min(mt, period)).repeat(-(-mt // period))[:mt]
+    if mt > period:
+        taps[-1] = live(mt - 1, 1)[0]
+    return torch.stack([m0, m1, lo, hi, taps], 1)
+
+
+@functools.lru_cache(maxsize=64)
+def tile_table(n: int, h: int, w: int, bn: int, cout: int) -> torch.Tensor:
+    """The units of a TMA launch, the kernel's whole walk: one int32 row per
+    unit (``TILE_COLUMNS``: output pixels [m0, m1), output channels
+    [n0, n0 + bn), the first staged input row, the live taps), unit
+    ``u`` = M tile ``u // (cout // bn)`` at Cout tile ``u % (cout // bn)``."""
+    t = _m_tiles(n, h, w)
+    n_tiles_n = cout // bn
+    t = t.repeat_interleave(n_tiles_n, 0)
+    n0 = torch.arange(n_tiles_n, dtype=torch.int64).repeat(len(t) // n_tiles_n) * bn
+    return torch.stack([t[:, 0], t[:, 1], n0, t[:, 2], t[:, 4]], 1).to(torch.int32).contiguous()
+
+
+def _smem_bytes(w: int, bn: int, w_stages: int, rows: int) -> int:
+    """The CUDA source's ``tma::layout(...).total``."""
+
+    def up(v: int, m: int) -> int:
+        return -(-v // m) * m
+
+    region = up(rows * w * CHUNK * 2, 1024)
+    wstage = up(bn * CHUNK * 2, 1024)
+    return 1024 + REGION_STAGES * region + w_stages * wstage + 128 + 8 * (
+        3 * REGION_STAGES + 2 * w_stages
+    )
+
+
+@functools.lru_cache(maxsize=256)
+def plan(
+    n: int, h: int, w: int, c: int, cout: int, dtype: torch.dtype,
+    aligned: bool = True, sms: int = H100_SMS,
+) -> Plan:
+    """The route and schedule of one call, from its shape alone.
+
+    The TMA route takes bf16 with C a multiple of 8, Cout a multiple of 16,
+    W <= 256 and the rows of a tile <= 256 (TMA box limits), and a layout
+    that fits in shared memory; other bf16 shapes take the mma.sync kernel.
+
+    ``aligned``: every pointer is 16-byte aligned. ``sms``: the card's
+    streaming multiprocessors.
+    """
+    if dtype == torch.float32:
+        return Plan("f32")
+    m = n * (h // 2) * (w // 2)
+    if not (aligned and c % 8 == 0 and cout % 16 == 0 and w <= 256 and m > 0):
+        return Plan("mma_sync")
+    t = _m_tiles(n, h, w)
+    rows = int((t[:, 3] - t[:, 2]).max()) + 1
+    if rows > 256:
+        return Plan("mma_sync")
+    m_tiles = len(t)
+    bn = next(b for b in (128, 64, 32, 16) if cout % b == 0)
+    # a small site splits Cout until the grid covers at least half the card
+    while m_tiles * (cout // bn) < sms // 2 and bn >= 32:
+        bn //= 2
+    fixed = _smem_bytes(w, bn, 0, rows)
+    stages = min(MAX_W_STAGES, (SMEM_LIMIT - fixed) // (_smem_bytes(w, bn, 1, rows) - fixed))
+    if stages < MIN_W_STAGES:
+        return Plan("mma_sync")
+    units = m_tiles * (cout // bn)
+    return Plan(
+        "tma", bn=bn, w_stages=stages, region_rows=rows, grid=min(units, sms),
+        smem=_smem_bytes(w, bn, stages, rows), m_tiles=m_tiles, units=units,
+    )
+
+
+@functools.lru_cache(maxsize=8)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(
@@ -95,15 +239,89 @@ def reference_norm_act_conv(
     return out.to(x.dtype).contiguous(memory_format=_CL)
 
 
-@functools.cache
-def _kernel():
-    fn = build.library("fused_block").dcvgan_fused_norm_act_conv
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+def bind(lib: ctypes.CDLL):
+    """The two C entries of a ``fused_block`` library: (mma.sync and f32, TMA)."""
+    old = lib.dcvgan_fused_norm_act_conv
+    old.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.c_float,
         ctypes.c_void_p,
     ]
-    fn.restype = ctypes.c_int
-    return fn
+    old.restype = ctypes.c_int
+    tma = lib.dcvgan_fused_norm_act_conv_tma
+    tma.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float] + [
+        ctypes.c_int
+    ] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    tma.restype = ctypes.c_int
+    return old, tma
+
+
+@functools.cache
+def _kernels():
+    return bind(build.library("fused_block"))
+
+
+@functools.lru_cache(maxsize=64)
+def _tiles_on(device: torch.device, n: int, h: int, w: int, bn: int, cout: int) -> torch.Tensor:
+    return tile_table(n, h, w, bn, cout).to(device)
+
+
+_ERRORS = {
+    -1: "the input rows a bf16 tile reads do not fit in shared memory",
+    -2: "the plan's shared memory is not the CUDA source's layout",
+    -5: "the plan stages fewer input rows than a tile reads",
+    -3: "libcuda has no cuTensorMapEncodeTiled",
+    -4: "a TMA tensor map was refused",
+}
+
+
+def plan_for(
+    x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, xn_out: Optional[torch.Tensor] = None
+) -> Plan:
+    """:func:`plan` for these CUDA tensors (their shapes, alignment and card)."""
+    n, c, h, wd = x.shape
+    ptrs = [x, w, out] + ([xn_out] if xn_out is not None else [])
+    aligned = all(t.data_ptr() % 16 == 0 for t in ptrs)
+    return plan(n, h, wd, c, w.shape[0], x.dtype, aligned, _sms(x.device.index or 0))
+
+
+def launch(
+    p: Plan,
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    shift: torch.Tensor,
+    w: torch.Tensor,
+    out: torch.Tensor,
+    negative_slope: float = 0.2,
+    xn_out: Optional[torch.Tensor] = None,
+    kernels=None,
+) -> None:
+    """Launch the kernel of route ``p.route`` on the current stream; raises
+    if the launch fails. ``out`` is (N, Cout, H/2, W/2) channels-last.
+    ``kernels``: the :func:`bind` of another build of the source (the lesion
+    tool's); by default the package's own."""
+    n, c, h, wd = x.shape
+    cout = w.shape[0]
+    xn_ptr = xn_out.data_ptr() if xn_out is not None else None
+    old, tma = kernels or _kernels()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if p.route == "tma":
+            tiles = _tiles_on(x.device, n, h, wd, p.bn, cout)
+            err = tma(
+                x.data_ptr(), scale.data_ptr(), shift.data_ptr(), w.data_ptr(), out.data_ptr(),
+                xn_ptr, n, h, wd, c, cout, float(negative_slope),
+                p.bn, p.w_stages, p.region_rows, tiles.data_ptr(), p.units, p.grid, p.smem, stream,
+            )
+        else:
+            err = old(
+                _DTYPE_CODES[x.dtype], x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                w.data_ptr(), out.data_ptr(), xn_ptr, n, h, wd, c, cout,
+                float(negative_slope), stream,
+            )
+    if err in _ERRORS:
+        raise ValueError(f"fused_norm_act_conv ({p.route}, width {wd}): {_ERRORS[err]}")
+    if err != 0:
+        raise RuntimeError(f"fused_norm_act_conv {p.route} kernel launch failed: CUDA error {err}")
 
 
 def fused_norm_act_conv(
@@ -128,31 +346,10 @@ def fused_norm_act_conv(
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     n, c, h, wd = x.shape
-    cout = w.shape[0]
     out = torch.empty(
-        (n, cout, h // 2, wd // 2), dtype=x.dtype, device=x.device, memory_format=_CL
+        (n, w.shape[0], h // 2, wd // 2), dtype=x.dtype, device=x.device, memory_format=_CL
     )
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel()(
-            _DTYPE_CODES[x.dtype],
-            x.data_ptr(),
-            scale.data_ptr(),
-            shift.data_ptr(),
-            w.data_ptr(),
-            out.data_ptr(),
-            xn_out.data_ptr() if xn_out is not None else None,
-            n, h, wd, c, cout,
-            float(negative_slope),
-            stream,
-        )
-    if err == -1:
-        raise ValueError(
-            f"fused_norm_act_conv: the input rows a bf16 tile reads (width {wd}) "
-            "do not fit in shared memory"
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_norm_act_conv kernel launch failed: CUDA error {err}")
+    launch(plan_for(x, w, out, xn_out), x, scale, shift, w, out, negative_slope, xn_out)
     fused_norm_act_conv.launches += 1
     return out
 

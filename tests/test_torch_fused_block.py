@@ -131,9 +131,22 @@ def cuda(monkeypatch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,c,cout", [(32, 64, 128), (2, 256, 256), (8, 24, 40), (4, 12, 8)])
-def test_kernel_matches_plain_on_gpu(cuda, dtype, h, c, cout):
-    x, scale, shift, w4 = _case(3, h, h, c, cout, seed=6, shift_offset=0.5)
+@pytest.mark.parametrize(
+    "n,h,w,c,cout",
+    [
+        (3, 32, 32, 64, 128),
+        (3, 2, 2, 256, 256),
+        (3, 8, 8, 24, 40),
+        (3, 4, 4, 12, 8),  # C = 12: the mma.sync route
+        (3, 16, 16, 128, 256),  # a partial last tile and an odd tile count
+        (300, 2, 2, 256, 256),  # down5's 2x2 input, 3 tiles
+        (5, 4, 12, 64, 64),  # OW < 8, W != H
+        (7, 6, 6, 8, 16),  # C = 8: half of the 64-channel chunk is the box's zero fill
+        (40, 6, 10, 64, 64),  # OH*OW = 15: tiles span images, shapes repeat every 15 tiles
+    ],
+)
+def test_kernel_matches_plain_on_gpu(cuda, dtype, n, h, w, c, cout):
+    x, scale, shift, w4 = _case(n, h, w, c, cout, seed=6, shift_offset=0.5)
     xt = nchw(x).to(cuda, dtype)
     st, sh = torch.from_numpy(scale).to(cuda), torch.from_numpy(shift).to(cuda)
     wt = hwio_to_torch(w4).to(cuda, dtype)
@@ -146,3 +159,163 @@ def test_kernel_matches_plain_on_gpu(cuda, dtype, h, c, cout):
     atol, rtol = (1e-4, 2.0**-7) if dtype == torch.bfloat16 else (1e-4, 1e-4)
     within(nhwc(got.cpu()), nhwc(want.cpu()), atol, rtol)
     assert torch.equal(xn_k, xn_p)
+
+
+# ---- the TMA kernel's schedule (ops/fused_block.py: plan, tile_table)
+
+# cgen down1..down5 at 64 px: (H of x, C, Cout) for colour-generator width ngf
+def _cgen_sites(ngf, image_size=64):
+    mults = [1, 2] + [4] * (int(np.log2(image_size)) - 2)
+    sites, h = [], image_size // 2
+    for i in range(1, len(mults)):
+        sites.append((h, ngf * mults[i - 1], ngf * mults[i]))
+        h //= 2
+    return sites
+
+
+FLAGSHIP_SITES = _cgen_sites(64)
+# small N, so that tiles are partial (N*OH*OW not a multiple of 128) and
+# tile counts odd
+SCHEDULE_CASES = [(3, h, h, c, co) for h, c, co in FLAGSHIP_SITES] + [
+    (300, 2, 2, 256, 256),  # down5: 2x2 input, 3 tiles
+    (5, 4, 12, 64, 64),  # W != H, OW < 8
+    (7, 6, 6, 8, 16),  # C = 8 (one 16-channel chunk, half of it the box's zero fill)
+    (40, 6, 10, 64, 64),  # OH*OW = 15: the tiles' shapes repeat every 15 tiles
+]
+
+
+def _tma_plan(n, h, w, c, cout):
+    p = port.plan(n, h, w, c, cout, torch.bfloat16)
+    assert p.route == "tma", p
+    return p
+
+
+def _table(p, n, h, w, cout):
+    t = port.tile_table(n, h, w, p.bn, cout).numpy()
+    assert t.dtype == np.int32 and t.shape == (p.units, len(port.TILE_COLUMNS))
+    return dict(zip(port.TILE_COLUMNS, t.T.astype(np.int64)))
+
+
+def _reads(n, h, w):
+    """Per output pixel: the lowest and highest flattened input row it reads,
+    and the taps (bit 4 * kh + kw) that read the image."""
+    img, oh, ow = np.meshgrid(np.arange(n), np.arange(h // 2), np.arange(w // 2), indexing="ij")
+    img, oh, ow = img.ravel(), oh.ravel(), ow.ravel()
+    taps = np.zeros_like(oh)
+    for kh in range(4):
+        for kw in range(4):
+            ih, iw = 2 * oh - 1 + kh, 2 * ow - 1 + kw
+            taps |= ((ih >= 0) & (ih < h) & (iw >= 0) & (iw < w)) << (4 * kh + kw)
+    lo = img * h + np.maximum(2 * oh - 1, 0)
+    hi = img * h + np.minimum(2 * oh + 2, h - 1)
+    return lo, hi, taps
+
+
+@pytest.mark.parametrize("n,h,w,c,cout", SCHEDULE_CASES)
+def test_plan_tiles_partition_the_output_once(n, h, w, c, cout):
+    p = _tma_plan(n, h, w, c, cout)
+    t = _table(p, n, h, w, cout)
+    m = n * (h // 2) * (w // 2)
+    covered = np.zeros((m, cout), np.int32)
+    for m0, m1, n0 in zip(t["m0"], t["m1"], t["n0"]):
+        assert 0 <= m0 < m1 <= min(m0 + port.TILE_M, m) and n0 % p.bn == 0 and n0 + p.bn <= cout
+        covered[m0:m1, n0 : n0 + p.bn] += 1
+    np.testing.assert_array_equal(covered, 1)
+    # CTA b runs units b, b + grid, ...: every unit once
+    assert 1 <= p.grid <= min(p.units, port.H100_SMS) and p.m_tiles * (cout // p.bn) == p.units
+
+
+@pytest.mark.parametrize("n,h,w,c,cout", SCHEDULE_CASES)
+def test_plan_gives_every_input_pixel_one_xn_out_owner(n, h, w, c, cout):
+    p = _tma_plan(n, h, w, c, cout)
+    t = _table(p, n, h, w, cout)
+    oh, ow = h // 2, w // 2
+    lo, hi, _ = _reads(n, h, w)
+    owners = np.zeros(n * h * w, np.int32)
+    for m0, m1, n0, p_lo in zip(t["m0"], t["m1"], t["n0"], t["p_lo"]):
+        # the rows the tile's pixels read lie inside its staged region
+        assert p_lo == lo[m0:m1].min() and hi[m0:m1].max() < p_lo + p.region_rows
+        if n0 != 0:
+            continue
+        # the kernel transforms every pixel of the staged rows and writes those it owns
+        px = np.arange(p_lo * w, min((p_lo + p.region_rows) * w, n * h * w))
+        row, iw = px // w, px % w
+        img, ih = row // h, row % h
+        m_own = (img * oh + ih // 2) * ow + iw // 2
+        owners[px[(m_own >= m0) & (m_own < m1)]] += 1
+    np.testing.assert_array_equal(owners, 1)
+
+
+@pytest.mark.parametrize("ngf", [8, 32, 64])
+@pytest.mark.parametrize("n", [16, 320, 4096])
+def test_plan_fits_shared_memory_at_every_cgen_site(ngf, n):
+    for h, c, cout in _cgen_sites(ngf):
+        p = _tma_plan(n, h, h, c, cout)
+        assert p.smem <= port.SMEM_LIMIT == 232_448
+        assert port.MIN_W_STAGES <= p.w_stages <= port.MAX_W_STAGES
+        assert p.region_rows <= 256 and p.bn <= 128 and cout % p.bn == 0
+
+
+def test_every_config_cgen_site_takes_the_tma_route():
+    from pathlib import Path
+
+    from dcvgan_torch.config import load_config
+
+    paths = sorted((Path(__file__).resolve().parents[1] / "configs").glob("*.yml"))
+    assert paths
+    for path in paths:
+        cfg = load_config(path)
+        n = cfg.batchsize * cfg.video_length
+        for h, c, cout in _cgen_sites(cfg.cgen.ngf, cfg.image_size):
+            p = port.plan(n, h, h, c, cout, torch.bfloat16)
+            assert p.route == "tma", (path.name, h, c, cout, p)
+
+
+def test_plan_routes_other_shapes_to_the_old_kernels():
+    assert port.plan(3, 8, 8, 12, 8, torch.bfloat16).route == "mma_sync"  # C % 8
+    assert port.plan(3, 8, 8, 24, 40, torch.bfloat16).route == "mma_sync"  # Cout % 16
+    assert port.plan(3, 32, 32, 64, 128, torch.bfloat16, aligned=False).route == "mma_sync"
+    assert port.plan(3, 32, 32, 64, 128, torch.float32).route == "f32"
+    # the flagship sites: one CTA per SM at most, every SM but a few busy
+    for h, c, cout in FLAGSHIP_SITES:
+        p = _tma_plan(4096, h, h, c, cout)
+        assert port.H100_SMS // 2 <= p.grid <= port.H100_SMS
+    assert _tma_plan(4096, 2, 2, 256, 256).bn < 128  # down5 splits Cout further to fill the card
+
+
+@pytest.mark.parametrize("n,h,w,c,cout", SCHEDULE_CASES)
+def test_skipping_dead_taps_is_exact(n, h, w, c, cout):
+    p = _tma_plan(n, h, w, c, cout)
+    t = _table(p, n, h, w, cout)
+    _, _, taps = _reads(n, h, w)
+    rng = np.random.default_rng(7)
+    x = nchw(rng.normal(size=(n, h, w, c)).astype(np.float32))
+    wt = torch.from_numpy(rng.normal(size=(cout, c, 4, 4)).astype(np.float32) * 0.1)
+    wt = wt.contiguous(memory_format=torch.channels_last)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32))
+    shift = torch.from_numpy((rng.normal(size=c) + 1.0).astype(np.float32))  # act(pad) != 0
+    full = nhwc(port.reference_norm_act_conv(x, scale, shift, wt)).reshape(-1, cout)
+    by_mask = {}
+    for m0, m1, live in zip(t["m0"], t["m1"], t["live"]):
+        # the live taps are exactly those some pixel of the tile reads the image with
+        assert live == np.bitwise_or.reduce(taps[m0:m1])
+        by_mask.setdefault(int(live), []).append((m0, m1))
+    for mask, spans in by_mask.items():
+        dead = torch.tensor([not (mask >> tap) & 1 for tap in range(16)]).reshape(4, 4)
+        pruned = nhwc(port.reference_norm_act_conv(x, scale, shift, wt * ~dead)).reshape(-1, cout)
+        for m0, m1 in spans:
+            np.testing.assert_array_equal(pruned[m0:m1], full[m0:m1])
+    if h == 2:  # down5: only the 4 centre taps touch a 2x2 image
+        assert set(by_mask) == {0b0000_0110_0110_0000}
+
+
+@pytest.mark.parametrize("n,h,w", [(4096, 32, 32), (4096, 2, 2), (1000, 6, 10), (3, 256, 256)])
+def test_tile_table_at_full_size_matches_the_pixel_rule(n, h, w):
+    # the periodic shortcut for the live taps against every pixel of every tile
+    lo, hi, taps = _reads(n, h, w)
+    t = port.tile_table(n, h, w, 64, 128).numpy()[::2]  # Cout tile 0 of each M tile
+    m = len(taps)
+    pad = -m % port.TILE_M
+    tiles = np.concatenate([taps, np.zeros(pad, taps.dtype)]).reshape(-1, port.TILE_M)
+    np.testing.assert_array_equal(t[:, 4], np.bitwise_or.reduce(tiles, axis=1))
+    np.testing.assert_array_equal(t[:, 3], lo[t[:, 0]])

@@ -8,11 +8,13 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
 1. environment: torch, CUDA, nvcc and the card (name and power limit);
    TF32 is switched off for cuDNN and matmul, so f32 comparisons are f32;
 2. build every kernel under ``dcvgan_torch/csrc`` with nvcc;
-3. hold each kernel (``fused_norm_act_conv``, ``dequantize_video``) against
-   its plain PyTorch version on the card at the main paths' shapes and at
-   edge shapes, and time kernel, plain version, one library call where there
-   is one, and the bound; the bf16 ``fused_norm_act_conv`` is timed on its
-   TMA route and on the mma.sync kernel of the other route in turns;
+3. hold each kernel (``fused_norm_act_conv``, ``dequantize_videos``)
+   against its plain PyTorch version on the card at the main paths' shapes
+   and at edge shapes, and time kernel, plain version, one library call
+   where there is one, and the bound; the bf16 ``fused_norm_act_conv`` is
+   timed on its TMA route and on the mma.sync kernel of the other route in
+   turns, a train step's two ``dequant`` batches in one launch and launched
+   per tensor in turns;
 4. the serving path: ``dcvgan_torch.cli.serve``'s ``serve()`` and
    ``GenerationServer.generate`` at the flagship width
    (``configs/mug-depth.yml``: depth, ngf 64, bf16, batch 256, seeded weights),
@@ -22,10 +24,19 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
 6. the training path: ``dcvgan_torch.cli.train``'s ``build_dataset`` and
    ``Trainer.train()`` at the same width (batch 20, bf16 compute over f32
    parameters) on the self-generating ``synthetic`` dataset, uint8 batches
-   dequantised on the card, 42 steps, again with the counters set to 0 just
-   before and read just after; then a seeded replay of 3 steps, a uint8
-   against float batch, a checkpoint round trip, and a profile of one step;
-7. a ``{"kernels": [...]}`` line, the card's line, and last
+   dequantised on the card (colour and depth in one launch a step), 42
+   steps, again with the counters set to 0 just before and read just after
+   (``fused_norm_act_conv`` held against its plain version first at the
+   frame count of ``log_samples``' round, as before each later path at its
+   own); then a seeded replay of 3 steps, a uint8 against float batch, a
+   checkpoint round trip, and a profile of one step;
+7. the evaluation path: ``Trainer.evaluate`` on the trained state with
+   ``configs/mug-depth.yml``'s evaluation block (IS and FID of 200 samples,
+   the v2 extractor npz, the synthetic dataset as the real side), the
+   device-resident and host paths held to the same scores;
+8. the inference path: ``cli.infer`` on the training run (40 videos, mp4s
+   read back), then ``cli.evaluate`` of the colour directory;
+9. a ``{"kernels": [...]}`` line, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Every phase prints its numbers as it goes. Imports nothing of JAX.
@@ -171,20 +182,34 @@ def check_kernel(fused, plain, n, h, c, cout, dtype, xn, slope=0.2, shift_offset
     return err
 
 
+def check_sites(n: int, path: str) -> float:
+    """The kernel against its plain version at the five sites at ``n``
+    frames, the frame count one sampling round of ``path`` gives it (its
+    tile table and persistent schedule depend on ``n``), in bf16 and f32,
+    with and without ``xn_out``; returns the largest max |diff|. Called
+    outside the paths' counted runs."""
+    from dcvgan_torch.ops.fused_block import fused_norm_act_conv, reference_norm_act_conv
+
+    errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, h, c, cout in SITES:
+            for xn in (True, False):
+                e = check_kernel(fused_norm_act_conv, reference_norm_act_conv, n, h, c, cout, dtype, xn)
+                errs.append(e)
+                print(f"check {path} N={n} {name} {str(dtype)[6:]} xn_out={xn}: max|diff| {e:.3e} "
+                      f"(tol {OUT_TOL[dtype][0]:g} + {OUT_TOL[dtype][1]:g}*|plain|)", flush=True)
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
 def phase_kernels() -> dict:
     import torch.nn.functional as F
 
     from dcvgan_torch.ops.fused_block import (
         Plan, fused_norm_act_conv, launch, plan_for, reference_norm_act_conv)
 
-    errs = []
+    errs = [check_sites(N_FRAMES, "serve")]
     for dtype in (torch.bfloat16, torch.float32):
-        for name, h, c, cout in SITES:
-            for xn in (True, False):
-                e = check_kernel(fused_norm_act_conv, reference_norm_act_conv, N_FRAMES, h, c, cout, dtype, xn)
-                errs.append(e)
-                print(f"check {name} {str(dtype)[6:]} xn_out={xn}: max|diff| {e:.3e} "
-                      f"(tol {OUT_TOL[dtype][0]:g} + {OUT_TOL[dtype][1]:g}*|plain|)", flush=True)
         # LeakyReLU slope 0.01 with a shift large enough that the activation
         # branches differently and padding != leaky_relu(shift) would show
         e = check_kernel(fused_norm_act_conv, reference_norm_act_conv, N_FRAMES, 16, 128, 256,
@@ -415,34 +440,51 @@ def phase_profile(gan, state, batch: int) -> None:
     profile_once(round_, "profile", {"batch": batch}, {"fused_norm_act_conv": fused_norm_act_conv})
 
 
-def profile_once(round_, label: str, report: dict, counted: dict) -> dict:
-    """Run ``round_`` twice under ``torch.profiler``: a warm-up step, traced
-    and discarded (the profiler loses kernels launched just after its trace
-    starts), then the measured step. Print ``label`` and a JSON report of
-    device time by kernel kind; return the device ms and launches of each
-    kernel kind. ``counted`` maps kinds to wrappers with a ``launches``
-    count: the profile must show each wrapper's launches in the measured
-    step, no fewer and no more."""
+def traced(body, counted: dict):
+    """Run ``body`` twice under ``torch.profiler``: a warm-up pass, traced
+    and discarded, then the measured pass. The profiler loses kernels
+    launched just after its trace or its measured window starts, so the
+    measured window opens with a marker kernel (a short spin, left out of
+    every sum), a synchronise and a pause. Returns (profiler, wall ms of the
+    measured pass, each counted wrapper's launches in it)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True,
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        round_()
+        body()
         torch.cuda.synchronize()
         prof.step()
+        torch.cuda._sleep(1000)  # the marker: spin_kernel
+        torch.cuda.synchronize()
+        time.sleep(0.005)
         before = {k: fn.launches for k, fn in counted.items()}
         t0 = time.perf_counter()
-        round_()
+        body()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         launched = {k: fn.launches - before[k] for k, fn in counted.items()}
         prof.step()
-    # kernels only: a user annotation (torch's own around an optimizer's step)
-    # carries the time of the kernels under it and would count them twice
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-               and not e.is_user_annotation and not e.key.startswith("Optimizer.")]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return prof, wall_ms, launched
+
+
+def device_kernels(prof) -> list:
+    """The profile's kernels. A user annotation (torch's own around an
+    optimizer's step) carries the time of the kernels under it and would
+    count them twice; the marker is left out."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.is_user_annotation and not e.key.startswith("Optimizer.")
+            and "spin_kernel" not in e.key]
+
+
+def profile_once(round_, label: str, report: dict, counted: dict) -> dict:
+    """Profile one ``round_`` (see :func:`traced`); print ``label`` and a
+    JSON report of device time by kernel kind; return the device ms and
+    launches of each kernel kind. ``counted`` maps kinds to wrappers with a
+    ``launches`` count: the profile must show each wrapper's launches in the
+    measured pass, no fewer and no more."""
+    prof, wall_ms, launched = traced(round_, counted)
+    kernels = device_kernels(prof)
     kinds = {name: 0.0 for name, _ in KERNEL_KINDS}
     kinds["elementwise and other"] = 0.0
     calls = dict.fromkeys(kinds, 0)
@@ -451,6 +493,11 @@ def profile_once(round_, label: str, report: dict, counted: dict) -> dict:
                     "elementwise and other")
         kinds[kind] += e.self_device_time_total / 1e3
         calls[kind] += e.count
+    lost = {k: n - calls[k] for k, n in launched.items() if calls[k] != n}
+    if kernels and lost:
+        raise AssertionError(f"{label}: the profile's launches disagree with the wrappers' counts "
+                             f"(counted minus shown: {lost})")
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     # each kernel counts once, under the innermost op that launched it
     ops = [e for e in prof.key_averages(group_by_input_shape=True)
@@ -472,10 +519,6 @@ def profile_once(round_, label: str, report: dict, counted: dict) -> dict:
         print(f"{label}: the profiler recorded no device time (not measured)", flush=True)
         return {}
     print(f"{label} " + json.dumps(prof_report), flush=True)
-    for kind, n in launched.items():
-        if calls[kind] != n:
-            raise AssertionError(f"{label}: the profile shows {calls[kind]} {kind} launches, "
-                                 f"the wrapper counted {n}")
     return {k: (kinds[k], calls[k]) for k in kinds}
 
 
@@ -485,7 +528,7 @@ PEAK_F32_OPS = 67e12
 
 
 def dequant_bound_ms(dtype: torch.dtype = torch.bfloat16) -> float:
-    """One train step's two launches: each input read once, each output written once."""
+    """One train step's two batches: each input read once, each output written once."""
     es = torch.finfo(dtype).bits // 8
     n = sum(math.prod(shape) for _, shape in DEQUANT_SHAPES)
     return max(n * (1 + es) / PEAK_BYTES_PER_S, 2 * n / PEAK_F32_OPS) * 1e3
@@ -494,70 +537,123 @@ def dequant_bound_ms(dtype: torch.dtype = torch.bfloat16) -> float:
 DEQUANT_BOUND_MS = dequant_bound_ms()
 
 
+def profiled_device_us(fn, counted: dict, reps: int = 50):
+    """(device us per call, launches per call) of ``counted``'s one kernel
+    kind (``{kind: wrapper}``, the kind a name fragment) over ``reps``
+    back-to-back calls of ``fn`` (see :func:`traced`); fails when the
+    profile shows another number of launches than the wrapper counted."""
+    (kind, _), = counted.items()
+
+    def body():
+        for _ in range(reps):
+            fn()
+
+    prof, _, launched = traced(body, counted)
+    found = [e for e in device_kernels(prof) if kind in e.key]
+    shown = sum(e.count for e in found)
+    if shown != launched[kind]:
+        raise AssertionError(f"{kind}: the profile shows {shown} of {launched[kind]} launches")
+    return sum(e.self_device_time_total for e in found) / reps, shown / reps
+
+
+def host_us(fn, reps: int = 500) -> float:
+    """Host microseconds per call of ``fn`` when calls are enqueued back to
+    back (the wrapper's cost; the device keeps up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def phase_dequant() -> dict:
-    """``dequantize_video`` against its plain version, bit for bit, and its
-    times. No single PyTorch call computes the function, so there is no
-    library time."""
-    from dcvgan_torch.ops.dequant import dequantize_video, reference_dequantize
+    """``dequantize_videos`` against its plain version per tensor, bit for
+    bit, and its times: a train step's two batches in one launch against the
+    same kernel launched once per tensor, in turns. No single PyTorch call
+    computes the function, so there is no library time."""
+    from dcvgan_torch.ops.dequant import dequantize_video, dequantize_videos, reference_dequantize
 
     g = torch.Generator(device="cuda").manual_seed(3)
 
     def draw(shape):
         return torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=g)
 
-    cases = [(name, draw(shape)) for name, shape in DEQUANT_SHAPES]
-    cases += [
-        ("0 elements", draw((0,))), ("1 element", draw((1,))), ("odd count", draw((3, 1001))),
-        ("all 256 values", torch.arange(256, dtype=torch.uint8, device="cuda")),
-        # views that start off 16-byte alignment: read with scalar loads
-        ("view at +1", draw((4099,))[1:]), ("view at +8", draw((5000,))[8:]),
+    step = [draw(shape) for _, shape in DEQUANT_SHAPES]
+    all256 = torch.arange(256, dtype=torch.uint8, device="cuda")
+    # segment lists: the step's pair, views that start off alignment (read
+    # with scalar loads) beside aligned tensors, empty segments, all 256 values
+    cases = [
+        ("colour + depth", step),
+        ("one tensor", [step[0]]),
+        ("0 elements", [draw((0,))]),
+        ("1 element", [draw((1,))]),
+        ("odd count, 0 elements, odd count", [draw((3, 1001)), draw((0,)), draw((17, 3))]),
+        ("all 256 values, views at +1 and +8, depth", [all256, draw((4099,))[1:], draw((5000,))[8:], step[1]]),
+        ("view at +3, 0 elements, 7 elements", [draw((64,))[3:], draw((0,)), draw((7,))]),
     ]
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for name, x in cases:
-            got, want = dequantize_video(x, dtype), reference_dequantize(x, dtype)
-            if got.shape != x.shape or got.dtype != dtype:
-                raise AssertionError(f"dequantize_video {name}: shape or dtype off")
-            if not torch.equal(got, want):
-                d = (got.float() - want.float()).abs().max().item()
-                raise AssertionError(f"dequantize_video {str(dtype)[6:]} {name}: differs, max {d:.3e}")
-            if x.numel():
-                worst = max(worst, (got.float() - want.float()).abs().max().item())
+        for name, xs in cases:
+            before = dequantize_video.launches
+            got = dequantize_videos(xs, dtype)
+            torch.cuda.synchronize()
+            if dequantize_video.launches - before != (1 if any(x.numel() for x in xs) else 0):
+                raise AssertionError(f"dequantize_videos {name}: not one launch")
+            for x, y in zip(xs, got):
+                want = reference_dequantize(x, dtype)
+                if y.shape != x.shape or y.dtype != dtype or not torch.equal(y, want):
+                    raise AssertionError(f"dequantize_videos {str(dtype)[6:]} {name}: differs from the plain "
+                                         f"version at shape {tuple(x.shape)}")
+                if x.numel():
+                    worst = max(worst, (y.float() - want.float()).abs().max().item())
         lo, hi = dequantize_video(torch.tensor([0, 255], dtype=torch.uint8, device="cuda"), dtype).tolist()
         if (lo, hi) != (-1.0, 1.0):
             raise AssertionError(f"0 and 255 map to {lo}, {hi}")
         # for the record: dividing by a Python scalar, torch multiplies by the reciprocal
-        allv = torch.arange(256, dtype=torch.uint8, device="cuda")
-        scalar_form = (allv.to(torch.float32) / 127.5 - 1.0).to(dtype)
-        off = int((scalar_form != reference_dequantize(allv, dtype)).sum())
-        print(f"check dequant {str(dtype)[6:]}: {len(cases)} cases equal the plain version bit for bit "
-              f"(`x / 127.5` with a Python scalar differs from the division at {off} of 256 bytes)",
-              flush=True)
-    try:
-        dequantize_video(torch.zeros(4, device="cuda"), torch.bfloat16)
-    except TypeError:
-        pass
-    else:
-        raise AssertionError("dequantize_video accepted a float input")
+        scalar_form = (all256.to(torch.float32) / 127.5 - 1.0).to(dtype)
+        off = int((scalar_form != reference_dequantize(all256, dtype)).sum())
+        print(f"check dequant {str(dtype)[6:]}: {len(cases)} segment lists equal the plain version per "
+              f"tensor bit for bit, one launch each (`x / 127.5` with a Python scalar differs from the "
+              f"division at {off} of 256 bytes)", flush=True)
+    for bad in ([torch.zeros(4, device="cuda")], [step[1], torch.zeros(4, device="cuda")]):
+        try:
+            dequantize_videos(bad, torch.bfloat16)
+        except TypeError:
+            pass
+        else:
+            raise AssertionError("dequantize_videos accepted a float input")
 
-    rows = []
-    for dtype in (torch.bfloat16, torch.float32):
-        es = torch.finfo(dtype).bits // 8
-        for name, shape in DEQUANT_SHAPES:
-            x = draw(shape)
-            n = x.numel()
-            t_bytes = n * (1 + es) / PEAK_BYTES_PER_S * 1e3  # read once, written once
-            t_ops = 2 * n / PEAK_F32_OPS * 1e3  # one division and one subtraction each
-            row = {
-                "site": name, "dtype": str(dtype)[6:], "x": list(shape),
-                "kernel_ms": cuda_ms(lambda: dequantize_video(x, dtype)),
-                "plain_ms": cuda_ms(lambda: reference_dequantize(x, dtype)),
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            }
-            rows.append(row)
-            print("time dequant " + json.dumps(row), flush=True)
-    main_path = [r for r in rows if r["dtype"] == "bfloat16"]
+    # a step's two bf16 batches: one launch (the train step's form) against
+    # the same kernel launched once per tensor, in turns: one, two, two, one
+    forms = {"one launch": lambda: dequantize_videos(step, torch.bfloat16),
+             "per tensor": lambda: [dequantize_video(x, torch.bfloat16) for x in step]}
+    turns = []
+    for form in ("one launch", "per tensor", "per tensor", "one launch"):
+        us, launches = profiled_device_us(forms[form], {"dequant_kernel": dequantize_video})
+        turns.append({"form": form, "device_us": us, "launches": launches,
+                      "host_us": host_us(forms[form])})
+        if launches != (1 if form == "one launch" else 2):
+            raise AssertionError(f"dequant {form}: the profile shows {launches} launches a step")
+    one = [t for t in turns if t["form"] == "one launch"]
+    two = [t for t in turns if t["form"] == "per tensor"]
+    row = {
+        "x": [list(shape) for _, shape in DEQUANT_SHAPES], "dtype": "bfloat16", "turns": turns,
+        "device_us": statistics.mean(t["device_us"] for t in one),
+        "per_tensor_device_us": statistics.mean(t["device_us"] for t in two),
+        "host_us": statistics.mean(t["host_us"] for t in one),
+        "per_tensor_host_us": statistics.mean(t["host_us"] for t in two),
+        "plain_ms": cuda_ms(lambda: [reference_dequantize(x, torch.bfloat16) for x in step]),
+        "bound_ms": DEQUANT_BOUND_MS,
+    }
+    row["bound_share"] = row["bound_ms"] * 1e3 / row["device_us"]
+    print("time dequant " + json.dumps(row), flush=True)
+    print(f"dequant, a step's two bf16 batches: {row['device_us']:.3f} us of device time in one launch "
+          f"against {row['per_tensor_device_us']:.3f} us launched per tensor (in turns, inputs warm in L2); "
+          f"bound {DEQUANT_BOUND_MS * 1e3:.3f} us; wrapper host cost {row['host_us']:.2f} us a step "
+          f"against {row['per_tensor_host_us']:.2f} us", flush=True)
     return {
         "name": "dequantize_video",
         "route": "cuda",
@@ -565,12 +661,17 @@ def phase_dequant() -> dict:
         "replaces": "dcvgan_tpu/ops/dequant.py:25",
         "launches": None,
         "max_abs_err": worst,
-        # one train step's two bf16 launches (colour + depth) at the flagship
-        "ms": sum(r["kernel_ms"] for r in main_path),
-        "plain_ms": sum(r["plain_ms"] for r in main_path),
-        "bound_ms": sum(r["bound_ms"] for r in main_path),
+        # one train step's bf16 batches (colour + depth) in one launch, at the
+        # flagship; "ms" becomes the train step's profiled device time
+        "ms": row["device_us"] / 1e3,
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "isolated_ms": row["device_us"] / 1e3,
+        "per_tensor_ms": row["per_tensor_device_us"] / 1e3,
+        "wrapper_ms": row["host_us"] / 1e3,
+        "per_tensor_wrapper_ms": row["per_tensor_host_us"] / 1e3,
     }
 
 
@@ -624,6 +725,8 @@ def phase_train(card: str):
           f"{time.perf_counter() - t0:.1f} s (cv2 JPEG frames)", flush=True)
     run_dir = Path(cfg.log_dir) / cfg.experiment_name
     logger = Recorder(run_dir, None)
+    # the fused kernel at the frame count of log_samples' one sampling round
+    fused_err = check_sites(Trainer.NUM_LOG * cfg.video_length, "train log_samples")
 
     torch.cuda.reset_peak_memory_stats()
     fused_norm_act_conv.launches = 0
@@ -639,8 +742,8 @@ def phase_train(card: str):
     steps = TRAIN_EPOCHS * (len(dataset) // cfg.batchsize)
     print(f"train: {state.step} steps in {train_s:.1f} s; dequantize_video launches {launches}, "
           f"fused_norm_act_conv launches {fused}", flush=True)
-    if state.step != steps or launches != 2 * steps:
-        raise AssertionError(f"expected {steps} steps and {2 * steps} dequant launches")
+    if state.step != steps or launches != steps:  # one launch a step for colour + depth
+        raise AssertionError(f"expected {steps} steps and {steps} dequant launches")
     if fused != 5 * 2:  # log_samples at step 0 and at the end, one cgen forward each
         raise AssertionError(f"expected 10 fused launches from log_samples, counted {fused}")
     if next(state.cgen.parameters()).dtype != torch.float32:
@@ -719,16 +822,144 @@ def phase_train(card: str):
     kinds = profile_once(lambda: gan.train_step(st, dev_batch, prng.base_key(3, "cuda")),
                          "train profile", {"batch": cfg.batchsize},
                          {"dequantize_video": dequantize_video, "fused_norm_act_conv": fused_norm_act_conv})
-    tmp.cleanup()
+    out = {"launches": launches, "device_ms": None, "trainer": trainer, "dataset": dataset,
+           "logger": logger, "tmp": tmp, "fused_err": fused_err}
     if not kinds:
-        return launches, None  # not measured
+        return out  # not measured
     dq_ms, dq_calls = kinds["dequantize_video"]
-    if dq_calls != 2:
-        raise AssertionError(f"the step's profile shows {dq_calls} dequantize_video launches, not 2")
+    if dq_calls != 1:
+        raise AssertionError(f"the step's profile shows {dq_calls} dequantize_video launches, not 1")
     print(f"dequant in the train-step profile: {dq_ms * 1e3:.2f} us of device time for the step's "
-          f"{dq_calls} launches, against a bound of {DEQUANT_BOUND_MS * 1e3:.2f} us for the two (bytes "
-          "from device memory; the inputs may sit in L2)", flush=True)
-    return launches, dq_ms
+          f"one launch (colour + depth), against a bound of {DEQUANT_BOUND_MS * 1e3:.2f} us (bytes from "
+          "device memory; the inputs may sit in L2)", flush=True)
+    out["device_ms"] = dq_ms
+    return out
+
+
+EVAL_WEIGHTS = "assets/extractor-synthetic-v2.npz"
+# device-resident against host scoring: the same quantisation and the same
+# extractor batches, so the same scores up to the order of float sums;
+# held as tests/test_evaluator.py holds the JAX package's two paths
+EVAL_RTOL, EVAL_ATOL = 1e-4, 1e-5
+
+
+def phase_eval(run: dict) -> dict:
+    """``Trainer.evaluate`` on the trained mug-depth state with
+    ``configs/mug-depth.yml``'s own evaluation block (IS and FID of 200
+    samples in rounds of 50) and the v2 extractor, the synthetic dataset as
+    the real side; counters set to 0 just before and read just after, the
+    fused kernel held against its plain version at a round's frame count
+    (50 videos x 16) before. Then
+    the device-resident sample-and-embed alone (videos embedded a second)
+    and the host path, which must score the same."""
+    from dcvgan_torch import prng
+    from dcvgan_torch.cli.train import build_evaluator
+    from dcvgan_torch.config import load_config
+    from dcvgan_torch.ops.dequant import dequantize_video
+    from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+
+    trainer, logger = run["trainer"], run["logger"]
+    cfg = trainer.config
+    cfg.evaluation = load_config(ROOT / "configs" / "mug-depth.yml").evaluation
+    cfg.evaluation.extractor_weights = EVAL_WEIGHTS
+    ev = cfg.evaluation
+    if (ev.batchsize, ev.num_samples, ev.metrics) != (50, 200, ["is", "fid"]):
+        raise AssertionError("configs/mug-depth.yml no longer evaluates IS and FID of 200 samples in 50s")
+    evaluator = trainer.evaluator = build_evaluator(cfg, run["dataset"])
+    print(f"eval extractor: {evaluator.extractor.fingerprint} ({EVAL_WEIGHTS}; float32 convolutions "
+          "with TF32 off)", flush=True)
+    rounds = -(-ev.num_samples // ev.batchsize)
+    fused_err = check_sites(ev.batchsize * cfg.video_length, "eval")
+
+    torch.cuda.reset_peak_memory_stats()
+    fused_norm_act_conv.launches = 0
+    dequantize_video.launches = 0
+    # -- main path: counts from 0 ------------------------------------------
+    t0 = time.perf_counter()
+    trainer.evaluate(trainer.state.step)
+    torch.cuda.synchronize()
+    launches = fused_norm_act_conv.launches
+    # -- end of main path ----------------------------------------------------
+    eval_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != 5 * rounds:
+        raise AssertionError(f"expected {5 * rounds} fused launches for {rounds} sampling rounds, "
+                             f"counted {launches}")
+    if dequantize_video.launches != 0:
+        raise AssertionError("the eval path launched dequantize_video")
+    scores = {m: logger.seen[m][-1] for m in ev.metrics}
+    if not all(math.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"scores are not finite: {scores}")
+
+    key = prng.named(prng.for_step(trainer.base_key, trainer.state.step), "eval")
+    state = trainer.eval_state
+    t0 = time.perf_counter()
+    feats, probs = evaluator.sample_and_embed(trainer.gan, state, key)
+    embed_s = time.perf_counter() - t0
+    if feats.shape[0] != ev.num_samples or not (np.isfinite(feats).all() and np.isfinite(probs).all()):
+        raise AssertionError("sample_and_embed gave the wrong count or non-finite values")
+    t0 = time.perf_counter()
+    host = evaluator.evaluate(trainer.gan, state, key, device_resident=False)
+    host_s = time.perf_counter() - t0
+    for m, v in scores.items():
+        if not math.isclose(v, host[m], rel_tol=EVAL_RTOL, abs_tol=EVAL_ATOL):
+            raise AssertionError(f"{m}: device-resident {v} against host {host[m]}")
+    record = {
+        "scores": scores, "host_scores": host, "samples": ev.num_samples, "batch": ev.batchsize,
+        "real_clips": len(evaluator._real_features()), "fused_launches": launches,
+        "evaluate_s": eval_s, "sample_and_embed_s": embed_s,
+        "videos_embedded_per_s": ev.num_samples / embed_s, "host_path_s": host_s,
+        "peak_gb": peak_gb, "fingerprint": evaluator.extractor.fingerprint, "fused_err": fused_err,
+    }
+    print("eval " + json.dumps(record), flush=True)
+    print(f"eval: Trainer.evaluate {eval_s:.3f} s (with the real side); device-resident sample and embed "
+          f"of {ev.num_samples} videos {embed_s:.3f} s = {record['videos_embedded_per_s']:.1f} videos/s; "
+          f"host path {host_s:.3f} s; peak device memory {peak_gb:.2f} GB", flush=True)
+    return record
+
+
+def phase_infer(run: dict, fingerprint: str) -> dict:
+    """``cli.infer`` on the train phase's run directory (40 videos in
+    rounds of 20; the fused kernel held against its plain version at a
+    round's 320 frames first), every mp4 read back, then ``cli.evaluate`` of
+    the colour directory."""
+    from dcvgan_torch.cli import evaluate as cli_evaluate
+    from dcvgan_torch.cli import infer as cli_infer
+    from dcvgan_torch.io.video import read_video
+    from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+
+    run_dir = run["trainer"].run_dir
+    save = Path(run["tmp"].name) / "generated"
+    n, b = 40, 20
+    fused_err = check_sites(b * run["trainer"].config.video_length, "infer")
+    fused_norm_act_conv.launches = 0
+    # -- main path: counts from 0 ------------------------------------------
+    t0 = time.perf_counter()
+    cli_infer.main([str(run_dir), "-1", str(save), "-n", str(n), "-b", str(b)])
+    torch.cuda.synchronize()
+    launches = fused_norm_act_conv.launches
+    # -- end of main path ----------------------------------------------------
+    infer_s = time.perf_counter() - t0
+    if launches != 5 * (n // b):
+        raise AssertionError(f"expected {5 * (n // b)} fused launches, counted {launches}")
+    for sub in ("color", "depth"):
+        files = sorted((save / sub).glob("*.mp4"))
+        if [p.name for p in files] != [f"{i:06d}.mp4" for i in range(n)]:
+            raise AssertionError(f"cli.infer wrote {len(files)} files under {sub}/, not {n}")
+        for p in files:
+            v = read_video(p)
+            if v.shape != (16, 64, 64, 3) or v.dtype != np.uint8:
+                raise AssertionError(f"{sub}/{p.name} reads back as {v.shape} {v.dtype}")
+    t0 = time.perf_counter()
+    scores = cli_evaluate.main([str(save / "color"), "--metrics", "is", "--batchsize", str(b),
+                                "--weights", str(ROOT / EVAL_WEIGHTS)])
+    evaluate_s = time.perf_counter() - t0
+    if scores["extractor"] != fingerprint or not math.isfinite(scores["is"]):
+        raise AssertionError(f"cli.evaluate printed {scores}")
+    record = {"videos": n, "batch": b, "infer_s": infer_s, "fused_launches": launches,
+              "evaluate_dir_s": evaluate_s, "scores": scores, "fused_err": fused_err}
+    print("infer " + json.dumps(record), flush=True)
+    return record
 
 
 def np_equal(a, b) -> bool:
@@ -765,11 +996,21 @@ def main() -> int:
     entry = phase_kernels()
     dequant_entry = phase_dequant()
     entry["launches"] = phase_slice(card)
-    dequant_entry["launches"], device_ms = phase_train(card)
-    # the kernel's own time: device time in the step's profile; back-to-back
-    # CUDA-event timing of the wrapper measures its host cost
-    dequant_entry["wrapper_ms"] = dequant_entry["ms"]
-    dequant_entry["ms"] = device_ms
+    run = phase_train(card)
+    dequant_entry["launches"] = run["launches"]
+    if run["device_ms"] is not None:
+        # the kernel's time on the main path: the step's one launch in the
+        # train-step profile (else the isolated time of phase 3 stays)
+        dequant_entry["ms"] = run["device_ms"]
+    evaluation = phase_eval(run)
+    inference = phase_infer(run, evaluation["fingerprint"])
+    run["tmp"].cleanup()
+    # the fused kernel's launches on the later paths, each counted from 0
+    entry["eval_launches"] = evaluation["fused_launches"]
+    entry["infer_launches"] = inference["fused_launches"]
+    # and its comparisons at each path's frame count
+    entry["max_abs_err"] = max(entry["max_abs_err"], run["fused_err"], evaluation["fused_err"],
+                               inference["fused_err"])
 
     print(json.dumps({"kernels": [entry, dequant_entry]}))
     print(card_line())

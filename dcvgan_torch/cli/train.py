@@ -5,8 +5,9 @@ Usage::
     python -m dcvgan_torch.cli.train --config configs/mug-depth.yml [--device cuda]
 
 Counterpart of ``dcvgan_tpu/cli/train.py`` on one GPU. Runs on ``cuda``
-unless ``--device cpu`` is given. The evaluator is not ported: when the
-config lists ``evaluation.metrics`` the run logs which are skipped.
+unless ``--device cpu`` is given. When the config lists
+``evaluation.metrics``, the trainer scores them at step 0 and every
+``evaluation_interval`` steps against the training dataset.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from dcvgan_torch.config import load_config
 from dcvgan_torch.data.dataset import VideoDataset
 from dcvgan_torch.data.preprocess import get_preprocessor
 from dcvgan_torch.train.trainer import Trainer
+
+REPO_ROOT = Path(__file__).resolve().parents[2]
 
 
 def build_dataset(cfg) -> VideoDataset:
@@ -50,6 +53,35 @@ def build_dataset(cfg) -> VideoDataset:
     )
 
 
+def build_evaluator(cfg, dataset, device=None):
+    """The evaluator of ``cfg.evaluation`` on ``dataset``, or None without
+    metrics. ``evaluation.extractor_weights`` is read as given, else
+    relative to the repository's root (configs name repo-relative paths);
+    a missing file raises."""
+    if not cfg.evaluation.metrics:
+        return None
+    from dcvgan_torch.eval.evaluator import Evaluator
+    from dcvgan_torch.eval.features import FeatureExtractor
+
+    weights = None
+    if cfg.evaluation.extractor_weights:
+        weights = Path(cfg.evaluation.extractor_weights)
+        if not weights.exists() and not weights.is_absolute() and (REPO_ROOT / weights).exists():
+            weights = REPO_ROOT / weights
+        if not weights.exists():
+            raise FileNotFoundError(
+                f"evaluation.extractor_weights not found: {cfg.evaluation.extractor_weights}"
+            )
+    return Evaluator(
+        metrics=cfg.evaluation.metrics,
+        num_samples=cfg.evaluation.num_samples,
+        batchsize=cfg.evaluation.batchsize,
+        dataset=dataset,
+        extractor=FeatureExtractor(weights_path=weights, device=device),
+        max_real_samples=cfg.evaluation.max_real_samples,
+    )
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--config", "-c", required=True, help="training configuration YAML")
@@ -60,12 +92,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
 
     cfg = load_config(args.config)
     dataset = build_dataset(cfg)
-    trainer = Trainer(cfg, dataset, device=args.device)
-    if cfg.evaluation.metrics:
-        trainer.logger.info(
-            "evaluation is not ported yet; skipping metrics: "
-            + ", ".join(cfg.evaluation.metrics)
-        )
+    evaluator = build_evaluator(cfg, dataset, device=args.device)
+    trainer = Trainer(cfg, dataset, evaluator=evaluator, device=args.device)
     trainer.train()
     return trainer
 

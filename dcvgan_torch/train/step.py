@@ -7,9 +7,9 @@ Counterpart of ``dcvgan_tpu/train/step.py``. One training iteration is
 run eagerly on one device; ``state`` is updated in place. The semantics are
 the JAX step's at its parity defaults:
 
-- the batch is ingested on the device: uint8 colour and depth through
-  :func:`dequantize_video`, uint8 segmentation labels to a one-hot, float16
-  flow and floats by a cast to the compute dtype;
+- the batch is ingested on the device: uint8 colour and depth together
+  through one :func:`dequantize_videos` launch, uint8 segmentation labels
+  to a one-hot, float16 flow and floats by a cast to the compute dtype;
 - D phase: fakes drawn from the ``d_fake`` stream in train mode carry no
   gradient and write no generator statistics; each critic sees the real
   batch, then the fakes, and its running BatchNorm statistics advance over
@@ -53,7 +53,7 @@ from dcvgan_torch.models.discriminators import (
 )
 from dcvgan_torch.models.ggen import GeometricVideoGenerator
 from dcvgan_torch.models.layers import cast_for_compute, place_for_training
-from dcvgan_torch.ops.dequant import dequantize_video
+from dcvgan_torch.ops.dequant import dequantize_video, dequantize_videos
 from dcvgan_torch.train.state import (
     GENERATOR_NAMES,
     MODEL_NAMES,
@@ -270,16 +270,18 @@ class DCVGAN:
                 return dequantize_video(x, self.dtype)
             return x.to(self.dtype)
 
-        xc = ingest(on_device(batch["color"]))
+        xc = on_device(batch["color"])
         xg = on_device(batch[self.geometric_info])
         if self.geometric_info == "segmentation" and xg.dtype == torch.uint8:
             # raw class labels -> one-hot; a label outside the range gives an
             # all-zero row, as in the JAX package
             classes = torch.arange(NUM_SEGM_PARTS, device=xg.device, dtype=torch.uint8)
-            xg = (xg[..., :1] == classes).to(self.dtype)
-        else:
-            xg = ingest(xg)
-        return xg, xc
+            return (xg[..., :1] == classes).to(self.dtype), ingest(xc)
+        if xc.dtype == torch.uint8 and xg.dtype == torch.uint8:
+            # both batches in one kernel launch
+            xc, xg = dequantize_videos([xc, xg], self.dtype)
+            return xg, xc
+        return ingest(xg), ingest(xc)
 
     def train_step(
         self,

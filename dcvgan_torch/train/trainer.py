@@ -12,9 +12,9 @@ the JAX trainer's:
   device (a CUDA event per step; the loop waits on the one recorded that
   many steps ago);
 - checkpoints hold the whole state and resume, also inside an epoch;
-- SIGTERM and SIGINT end the loop through a forced final checkpoint.
-
-The evaluator is not ported: :meth:`Trainer.evaluate` does nothing.
+- SIGTERM and SIGINT end the loop through a forced final checkpoint;
+- with an evaluator (``eval/evaluator.py``), the configured metrics are
+  scored at step 0 and every ``evaluation_interval`` steps.
 """
 
 from __future__ import annotations
@@ -56,10 +56,13 @@ class Trainer:
         config: ExperimentConfig,
         dataset,
         logger: Optional[Logger] = None,
+        evaluator=None,
         device: Optional[Union[str, torch.device]] = None,
     ):
         self.config = config
         self.dataset = dataset
+        self.evaluator = evaluator
+        self._eval_fingerprint_logged = False
         self.geometric_info = config.geometric_info.name
 
         run_dir = Path(config.log_dir) / config.experiment_name
@@ -150,7 +153,21 @@ class Trainer:
             self.logger.tf_log_video(grid, "real_samples", iteration)
 
     def evaluate(self, iteration: int) -> None:
-        """Quantitative metrics: the evaluator is not ported, so nothing runs."""
+        """The configured metrics of the eval state's samples, logged; does
+        nothing without an evaluator or metrics. The extractor's fingerprint
+        is logged once: scores compare only under one fingerprint."""
+        if self.evaluator is None or not self.config.evaluation.metrics:
+            return
+        if not self._eval_fingerprint_logged:
+            self.logger.debug(f"eval extractor: {self.evaluator.extractor.fingerprint}")
+            self._eval_fingerprint_logged = True
+        key = prng.named(prng.for_step(self.base_key, iteration), "eval")
+        scores = self.evaluator.evaluate(self.gan, self.eval_state, key)
+        for name, score in scores.items():
+            if name not in self.logger.metrics:
+                # a score may emit derived metrics (prd_f1_8 beside prd)
+                self.logger.define(name, MetricType.Float)
+            self.logger.update(name, float(score))
 
     # -------------------------------------------------------------- transfer
     def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -198,6 +215,8 @@ class Trainer:
         for name in LOSS_NAMES:
             logger.define(name, MetricType.Loss)
         logger.define("iters_per_sec", MetricType.Float, priority=-2)
+        for m in cfg.evaluation.metrics:
+            logger.define(m, MetricType.Float)
 
         self.log_hparams()
         logger.debug("(trainer)")

@@ -196,7 +196,9 @@ for n in names + ["chip_smoke"]:
     importlib.import_module(n)
 for n in ("models.discriminators", "losses", "ops.dequant", "train.checkpoint", "train.trainer",
           "cli.train", "data.dataset", "data.loader", "data.mock", "data.host_ops",
-          "data.preprocess.synthetic", "io.image", "logging.logger"):
+          "data.preprocess.synthetic", "io.image", "logging.logger", "io.video", "eval.metrics",
+          "eval.features", "eval.evaluator", "cli.evaluate", "cli.infer", "cli.import_torch",
+          "compat.torch_import"):
     assert "dcvgan_torch." + n in names, n
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "dcvgan_tpu")]
 assert not bad, bad

@@ -87,12 +87,21 @@ def test_cli_trains_logs_a_row_and_writes_a_checkpoint(tmp_path, monkeypatch):
 
 
 def test_cli_says_that_evaluation_is_not_ported(tmp_path, monkeypatch):
+    # evaluation is ported: the CLI no longer says it skips the metrics, it
+    # scores them at step 0 and logs the extractor's fingerprint once
     monkeypatch.chdir(tmp_path)
-    cfg = _config(tmp_path, evaluation={"metrics": ["is", "fid"]}, experiment_name="with-eval")
+    cfg = _config(tmp_path, evaluation={"metrics": ["is", "fid"], "num_samples": 2,
+                                        "extractor_weights": "assets/extractor-synthetic.npz"},
+                  experiment_name="with-eval")
     trainer = cli_train.main(["--config", str(cfg), "--device", "cpu"])
     log = _log(tmp_path / "result" / "mock" / "with-eval")
-    assert "evaluation is not ported yet; skipping metrics: is, fid" in log
+    assert "not ported" not in log and "skipping metrics" not in log
+    assert log.count("eval extractor: small-npz/sha256=") == 1
+    header = next(line for line in log.splitlines() if "loss_gen" in line)
+    assert "is" in header.split() and "fid" in header.split()
+    assert trainer.evaluator is not None and trainer.evaluator.metrics == ["is", "fid"]
     assert trainer.evaluate(1) is None
+    assert np.isfinite(trainer.logger.metrics["fid"].value)
 
 
 def test_cli_raises_without_cuda_unless_asked_for_the_cpu(tmp_path, monkeypatch):

@@ -36,22 +36,33 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
    device-resident and host paths held to the same scores;
 8. the inference path: ``cli.infer`` on the training run (40 videos, mp4s
    read back), then ``cli.evaluate`` of the colour directory;
-9. a ``{"kernels": [...]}`` line, the card's line, and last
-   ``{"ok": true, "device": {...}}``.
+9. the HTTP path: ``cli.serve``'s ``GenerationServer`` on the training run
+   behind ``serve_http`` in this process: seeded bytes over two chunks and a
+   geo npz equal to ``generate``, a 400, a 413 and a 429, ``/stats`` equal to
+   what was sent; the latency, delivered videos/s, delivered share, idle
+   share of a profiled round and resident memory of 4 clients x 16 unseeded
+   n=16 requests at two server shapes (64 x 1 round and 256 x 4 rounds a
+   chunk); then ``cli.serve <run> -1 --sink mp4 --with-geo`` (128 + 128
+   mp4s read back); counters set to 0 just before and read just after;
+10. a ``{"kernels": [...]}`` line, the card's line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Every phase prints its numbers as it goes. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import http.client
 import importlib.metadata
 import importlib.util
+import io
 import json
 import math
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -377,11 +388,12 @@ def phase_slice(card: str) -> int:
     # -- main path: counts from 0 ------------------------------------------
     t0 = time.perf_counter()
     xg, xc = gan.sample_videos(state, prng.base_key(11, "cuda"), batch)
-    stats = serve(gan, state, batch, iters, chunks, Sink("null", None), seed=0)
+    stats = serve(gan, state, batch, iters, chunks, Sink("null", None, "depth", False), seed=0)
     server = GenerationServer(gan, state, batchsize=batch, iters_per_chunk=1, geo_name="depth")
     geo_a, col_a = server.generate(2 * batch, seed=7, with_geo=True)
     geo_b, col_b = server.generate(2 * batch, seed=7, with_geo=True)
     _, col_c = server.generate(2 * batch, seed=8)
+    server.close()
     torch.cuda.synchronize()
     launches = fused_norm_act_conv.launches
     # -- end of main path ----------------------------------------------------
@@ -479,10 +491,10 @@ def device_kernels(prof) -> list:
 
 def profile_once(round_, label: str, report: dict, counted: dict) -> dict:
     """Profile one ``round_`` (see :func:`traced`); print ``label`` and a
-    JSON report of device time by kernel kind; return the device ms and
-    launches of each kernel kind. ``counted`` maps kinds to wrappers with a
-    ``launches`` count: the profile must show each wrapper's launches in the
-    measured pass, no fewer and no more."""
+    JSON report of device time by kernel kind, and return it (empty when
+    the profiler recorded no device time). ``counted`` maps kinds to
+    wrappers with a ``launches`` count: the profile must show each wrapper's
+    launches in the measured pass, no fewer and no more."""
     prof, wall_ms, launched = traced(round_, counted)
     kernels = device_kernels(prof)
     kinds = {name: 0.0 for name, _ in KERNEL_KINDS}
@@ -519,7 +531,7 @@ def profile_once(round_, label: str, report: dict, counted: dict) -> dict:
         print(f"{label}: the profiler recorded no device time (not measured)", flush=True)
         return {}
     print(f"{label} " + json.dumps(prof_report), flush=True)
-    return {k: (kinds[k], calls[k]) for k in kinds}
+    return prof_report
 
 
 # the two uint8 batches of one train step at the flagship: (B, T, H, W, C)
@@ -826,7 +838,8 @@ def phase_train(card: str):
            "logger": logger, "tmp": tmp, "fused_err": fused_err}
     if not kinds:
         return out  # not measured
-    dq_ms, dq_calls = kinds["dequantize_video"]
+    dq_ms = kinds["by_kind_ms"]["dequantize_video"]
+    dq_calls = kinds["by_kind_launches"]["dequantize_video"]
     if dq_calls != 1:
         raise AssertionError(f"the step's profile shows {dq_calls} dequantize_video launches, not 1")
     print(f"dequant in the train-step profile: {dq_ms * 1e3:.2f} us of device time for the step's "
@@ -962,6 +975,266 @@ def phase_infer(run: dict, fingerprint: str) -> dict:
     return record
 
 
+# the two server shapes the HTTP mix runs at: GenerationServer's defaults
+# (64 videos a chunk) and the CLI's (256 x 4 rounds)
+HTTP_SHAPES = [(64, 1), (256, 4)]
+# the mix: 4 client threads, each sending 16 unseeded n=16 colour requests
+# one after another (closed loop), 64 requests and 1,024 videos in all
+MIX_CLIENTS, MIX_REQUESTS, MIX_N = 4, 16, 16
+SEEDED_N = 1100  # a seeded request over two chunks of 256 x 4
+
+
+def http_request(port: int, path: str, body: bytes | None = None):
+    """(status, headers, body) of one request to the in-process server:
+    POST when ``body`` is given, else GET."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("GET" if body is None else "POST", path, body=body)
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def expect_status(port: int, path: str, want: int, body: bytes | None = None):
+    status, headers, data = http_request(port, path, body)
+    if status != want:
+        raise AssertionError(f"{path}: HTTP {status}, not {want} ({data[:200]!r})")
+    return headers, data
+
+
+def npy_bytes(array: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    np.save(buf, array)
+    return buf.getvalue()
+
+
+def rss_mb() -> float:
+    """This process's resident set, MB."""
+    with open("/proc/self/status") as f:
+        kb = next(int(line.split()[1]) for line in f if line.startswith("VmRSS:"))
+    return kb / 1024
+
+
+def unseeded_clients(port: int, clients: int, requests: int, video_shape: tuple) -> dict:
+    """``clients`` threads, each sending ``requests`` unseeded n=MIX_N colour
+    requests one after another; a 429 is retried after 1 ms (and counted);
+    any other answer than 200 with the exact npy header and length fails.
+    Returns the latencies (send to last byte, s), the wall time and the
+    retries."""
+    hdr = io.BytesIO()
+    np.lib.format.write_array_header_1_0(
+        hdr, {"descr": "|u1", "fortran_order": False, "shape": (MIX_N,) + video_shape})
+    header = hdr.getvalue()
+    length = len(header) + MIX_N * math.prod(video_shape)
+    lat, retries, failures = [], [0], []
+    lock = threading.Lock()
+
+    def client():
+        try:
+            for _ in range(requests):
+                t0 = time.perf_counter()
+                while True:
+                    status, _, data = http_request(port, f"/generate?n={MIX_N}")
+                    if status != 429:
+                        break
+                    with lock:
+                        retries[0] += 1
+                    time.sleep(0.001)
+                dt = time.perf_counter() - t0
+                if status != 200 or len(data) != length or data[:len(header)] != header:
+                    raise AssertionError(f"HTTP {status}, {len(data)} bytes ({length} expected)")
+                with lock:
+                    lat.append(dt)
+        except Exception as e:  # reported below, which fails the run
+            failures.append(e)
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if failures or any(t.is_alive() for t in threads) or len(lat) != clients * requests:
+        raise AssertionError(f"HTTP clients failed: {failures[:3]}")
+    return {"latencies": lat, "wall_s": wall, "retries": retries[0]}
+
+
+def http_behaviour(server, port: int) -> dict:
+    """What the front end must do, at the CLI's server shape (256 x 4):
+    seeded bytes across two chunks equal ``generate`` in this process, by
+    GET and by POST; a geo npz equals ``generate(with_geo=True)``; one 400,
+    one 413 and one 429. Returns the requests sent and the chunks they
+    dispatched."""
+    per_chunk = server.batchsize * server.iters
+    n = SEEDED_N
+    if not per_chunk < n <= 2 * per_chunk:
+        raise AssertionError(f"n={n} does not span two chunks of {per_chunk}")
+    health = json.loads(expect_status(port, "/healthz", 200)[1])
+    if health["device"] != torch.cuda.get_device_name(0) or health["batchsize"] != server.batchsize:
+        raise AssertionError(f"/healthz says {health}")
+    headers, got = expect_status(port, f"/generate?n={n}&seed=11", 200)
+    _, posted = expect_status(port, "/generate", 200, json.dumps({"n": n, "seed": 11}).encode())
+    _, color = server.generate(n, 11)
+    want = npy_bytes(color)
+    if got != want or posted != want or int(headers["Content-Length"]) != len(want):
+        raise AssertionError("seeded HTTP bytes differ from GenerationServer.generate")
+    if headers["X-Video-Shape"] != "x".join(map(str, color.shape)):
+        raise AssertionError(f"X-Video-Shape {headers['X-Video-Shape']}")
+    headers, npz = expect_status(port, "/generate?n=8&seed=5&geo=1", 200)
+    geo, color = server.generate(8, 5, with_geo=True)
+    arrays = np.load(io.BytesIO(npz))
+    if not (np_equal(arrays["color"], color) and np_equal(arrays["geo"], geo)):
+        raise AssertionError("the geo npz differs from generate(with_geo=True)")
+    if headers["Content-Type"] != "application/x-npz" or geo.shape != (8,) + server.video_shape[:-1] + (1,):
+        raise AssertionError(f"geo response {headers['Content-Type']} {geo.shape}")
+    expect_status(port, "/generate?n=0", 400)  # the one deliberate error
+    limit = server.max_request_videos
+    err = json.loads(expect_status(port, f"/generate?n={limit + 1}", 413)[1])
+    if err["max_request_videos"] != limit:
+        raise AssertionError(f"413 body {err}")
+    taken = 0
+    while server.admit():
+        taken += 1
+    try:
+        headers, _ = expect_status(port, "/generate?n=1", 429)
+    finally:
+        for _ in range(taken):
+            server.release()
+    if taken != 4 or headers.get("Retry-After") != "1":
+        raise AssertionError(f"{taken} admission slots, Retry-After {headers.get('Retry-After')}")
+    print(f"http behaviour: seeded n={n} over two chunks equals generate by GET and POST "
+          f"({len(want)} bytes), geo n=8 npz equals generate, 400 / 413 / 429 seen", flush=True)
+    # 2 GET/POST + generate of n, 1 geo GET + generate; 2 chunks each for n
+    return {"requests": 5, "videos": 3 * n + 2 * 8, "errors": 1, "rejected": 2, "chunks": 3 * 2 + 2}
+
+
+def http_shape(gan, state, batch: int, iters: int, card: str, behaviour: bool) -> dict:
+    """One server shape: ``serve_http`` in-process on a daemon thread, the
+    behaviour checks where asked, the timed mix, then one profiled round
+    of the mix's load (4 concurrent n=16 requests). Returns the record and
+    the cgen forwards of every chunk the server dispatched."""
+    from dcvgan_torch.cli.serve import GenerationServer, serve_http
+    from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+
+    torch.cuda.reset_peak_memory_stats()
+    server = GenerationServer(gan, state, batchsize=batch, iters_per_chunk=iters, geo_name="depth",
+                              max_concurrent=4, batch_window_ms=5.0)
+    httpd = serve_http(server, 0)
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        sent = http_behaviour(server, port) if behaviour else {
+            "requests": 0, "videos": 0, "errors": 0, "rejected": 0, "chunks": 0}
+        before = dict(server.counters)
+        rss_before = rss_mb()
+        mix = unseeded_clients(port, MIX_CLIENTS, MIX_REQUESTS, server.video_shape)
+        rss_after = rss_mb()
+        chunks = server.counters["batched_chunks"] - before["batched_chunks"]
+        capacity = batch * iters
+        lat = np.array(mix["latencies"]) * 1e3
+        record = {
+            "batch": batch, "iters_per_chunk": iters, "window_ms": 5.0, "max_concurrent": 4,
+            "clients": MIX_CLIENTS, "requests": len(lat), "n": MIX_N,
+            "p50_ms": float(np.percentile(lat, 50)), "p90_ms": float(np.percentile(lat, 90)),
+            "p99_ms": float(np.percentile(lat, 99)), "max_ms": float(lat.max()),
+            "mix_s": mix["wall_s"], "videos_per_s": MIX_CLIENTS * MIX_REQUESTS * MIX_N / mix["wall_s"],
+            "batched_chunks": chunks,
+            "delivered_share": MIX_CLIENTS * MIX_REQUESTS * MIX_N / (chunks * capacity),
+            "retried_429": mix["retries"], "rss_mb_before": rss_before, "rss_mb_after": rss_after,
+            "latencies_ms": lat.tolist(),  # in the order the requests ended
+        }
+        retried = [mix["retries"]]
+
+        def one_round():  # the mix's load for one round: each client's one request
+            retried.append(unseeded_clients(port, MIX_CLIENTS, 1, server.video_shape)["retries"])
+
+        prof = profile_once(one_round, f"http profile {batch}x{iters}", {"batch": batch, "iters": iters},
+                            {"fused_norm_act_conv": fused_norm_act_conv})
+        record["profiled_round_idle_share"] = prof.get("device_idle_share")
+        record["profiled_round_wall_ms"] = prof.get("wall_ms")
+        record["rss_mb_after_profile"] = rss_mb()
+        record["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        stats = json.loads(expect_status(port, "/stats", 200)[1])
+        mixed = MIX_CLIENTS * MIX_REQUESTS + 2 * MIX_CLIENTS  # the mix and the two traced rounds
+        want = {
+            "requests": sent["requests"] + mixed, "batched_requests": mixed,
+            "videos_served": sent["videos"] + mixed * MIX_N, "errors": sent["errors"],
+            "rejected": sent["rejected"] + sum(retried),
+        }
+        if {k: stats[k] for k in want} != want:
+            raise AssertionError(f"/stats says {stats}, the phase sent {want}")
+        record["stats"] = {k: stats[k] for k in server.counters}
+        dispatched = 1 + sent["chunks"] + stats["batched_chunks"]  # 1: the warm-up at construction
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+        server.close()
+    print(f"http {batch}x{iters} " + json.dumps(record), flush=True)
+    print(f"http {batch}x{iters}: {len(lat)} requests of n={MIX_N} from {MIX_CLIENTS} clients, latency "
+          f"p50 {record['p50_ms']:.2f} p90 {record['p90_ms']:.2f} p99 {record['p99_ms']:.2f} "
+          f"max {record['max_ms']:.2f} ms; {record['videos_per_s']:.1f} videos/s delivered; {chunks} "
+          f"chunks, delivered share {record['delivered_share']:.4f}; idle share of a profiled round "
+          f"{record['profiled_round_idle_share']}; RSS {rss_before:.0f} -> {rss_after:.0f} MB; "
+          f"on {card}", flush=True)
+    return {"record": record, "forwards": dispatched * iters}
+
+
+def phase_http(run: dict, card: str) -> dict:
+    """The HTTP front end of ``cli.serve`` on the train phase's run
+    directory (loaded through ``load_run``, EMA where there is one): the
+    behaviour checks and the mix at both server shapes, then ``cli.serve``'s
+    run-directory form into the mp4 sink (2 chunks of 64 with geometry, 128
+    + 128 files read back). The fused kernel is held against its plain
+    version at the 64 x 1 server's 1,024 frames first; counters set to 0
+    just before and read just after: 5 launches per cgen forward."""
+    from dcvgan_torch.cli import serve as cli_serve
+    from dcvgan_torch.cli.infer import load_run
+    from dcvgan_torch.io.video import read_video
+    from dcvgan_torch.ops.dequant import dequantize_video
+    from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+
+    run_dir = run["trainer"].run_dir
+    cfg, gan, trained = load_run(run_dir, -1)
+    state = trained.generators().with_ema_params()
+    out = Path(run["tmp"].name) / "served"
+    fused_err = check_sites(HTTP_SHAPES[0][0] * cfg.video_length, "http")
+    fused_norm_act_conv.launches = 0
+    dequantize_video.launches = 0
+    # -- main path: counts from 0 ------------------------------------------
+    t0 = time.perf_counter()
+    shapes = [http_shape(gan, state, b, it, card, behaviour=(b, it) == HTTP_SHAPES[-1])
+              for b, it in HTTP_SHAPES]
+    stats = cli_serve.main([str(run_dir), "-1", "--sink", "mp4", "--out", str(out), "-b", "64",
+                            "--iters-per-chunk", "1", "--chunks", "2", "--with-geo"])
+    torch.cuda.synchronize()
+    launches = fused_norm_act_conv.launches
+    # -- end of main path ----------------------------------------------------
+    http_s = time.perf_counter() - t0
+    forwards = sum(s["forwards"] for s in shapes) + 1 + 2  # cli.serve: warm-up + 2 chunks of 1 round
+    print(f"http phase: {http_s:.1f} s; fused_norm_act_conv launches {launches} for {forwards} cgen "
+          "forwards", flush=True)
+    if launches != 5 * forwards:
+        raise AssertionError(f"expected {5 * forwards} fused launches, counted {launches}")
+    if dequantize_video.launches != 0:
+        raise AssertionError("the HTTP path launched dequantize_video")
+    for sub in ("color", "depth"):
+        files = sorted((out / sub).glob("*.mp4"))
+        if [p.name for p in files] != [f"{i:06d}.mp4" for i in range(128)]:
+            raise AssertionError(f"cli.serve wrote {len(files)} mp4 files under {sub}/, not 128")
+        for p in files:
+            v = read_video(p)
+            if v.shape != (16, 64, 64, 3) or v.dtype != np.uint8:
+                raise AssertionError(f"{sub}/{p.name} reads back as {v.shape} {v.dtype}")
+    print(f"cli.serve <run> -1 --sink mp4: 128 + 128 files read back as (16, 64, 64, 3) uint8 "
+          f"({stats['total_s_incl_writes']} s with writes)", flush=True)
+    return {"fused_launches": launches, "fused_err": fused_err, "http_s": http_s,
+            "shapes": [s["record"] for s in shapes]}
+
+
 def np_equal(a, b) -> bool:
     return a.shape == b.shape and bool((a == b).all())
 
@@ -1004,13 +1277,15 @@ def main() -> int:
         dequant_entry["ms"] = run["device_ms"]
     evaluation = phase_eval(run)
     inference = phase_infer(run, evaluation["fingerprint"])
+    served = phase_http(run, card)
     run["tmp"].cleanup()
     # the fused kernel's launches on the later paths, each counted from 0
     entry["eval_launches"] = evaluation["fused_launches"]
     entry["infer_launches"] = inference["fused_launches"]
+    entry["http_launches"] = served["fused_launches"]
     # and its comparisons at each path's frame count
     entry["max_abs_err"] = max(entry["max_abs_err"], run["fused_err"], evaluation["fused_err"],
-                               inference["fused_err"])
+                               inference["fused_err"], served["fused_err"])
 
     print(json.dumps({"kernels": [entry, dequant_entry]}))
     print(card_line())

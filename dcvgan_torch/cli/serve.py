@@ -1,25 +1,59 @@
-"""Serving CLI: sustained batched video generation on the GPU.
+"""Serving CLI: sustained batched video generation on the GPU, and its HTTP
+front end.
 
-Counterpart of the chunk loop of ``dcvgan_tpu/cli/serve.py``: each chunk
-runs ``iters`` sampling rounds (ggen + cgen) and quantizes to uint8 on the
-device; at most ``queue_depth`` chunks are in flight, and the host drains
-chunk k while the device generates chunk k+1. A chunk's outputs are copied
-to pinned host memory on a side CUDA stream that waits on an event recorded
-after the chunk, so the compute stream never blocks on a copy.
+Counterpart of ``dcvgan_tpu/cli/serve.py``. Each chunk runs ``iters``
+sampling rounds (ggen + cgen) and quantizes to uint8 on the device; at most
+``queue_depth`` chunks are in flight, and the host drains chunk k while the
+device generates chunk k+1. A chunk's outputs are copied to pinned host
+memory on a side CUDA stream that waits on an event recorded after the
+chunk, so the compute stream never blocks on a copy.
 
 Usage::
 
+    python -m dcvgan_torch.cli.serve <result_dir> <iteration> \\
+        [-b 256] [--iters-per-chunk 4] [--chunks 8] [--sink null|npy|mp4] \\
+        [--out DIR] [--with-geo] [--seed 0] [--no-ema] [--device cuda]
+    python -m dcvgan_torch.cli.serve <result_dir> <iteration> --listen PORT \\
+        [--max-request-videos 4096] [--max-concurrent 4] [--batch-window-ms 5]
     python -m dcvgan_torch.cli.serve --config configs/mug-depth.yml \\
-        [--weights state.npz] [-b 256] [--iters-per-chunk 4] [--chunks 8] \\
-        [--sink null|npy] [--out DIR] [--with-geo] [--seed 0] [--device cuda]
+        [--weights state.npz] ...
 
-``--weights`` is an npz written from a JAX state (``compat/from_jax.py``);
-without it the generators take a fresh init seeded from the config's seed.
+``result_dir`` is a run directory of the port (``config.yml`` and
+``models/step_<N>.pt``, as ``cli.train`` and ``cli.import_torch`` write
+them); ``iteration`` -1 takes the latest checkpoint. The ``--config`` form
+takes the generators from ``--weights``, an npz written from a JAX state
+(``compat/from_jax.py``), or without it from a fresh init seeded from the
+config's seed. Both serve the EMA generators where there are any, unless
+``--no-ema``.
 
 Sinks: ``null`` drains only a per-chunk checksum (the sum of every quantized
 pixel, mod 2**32, so the device provably produced every video); ``npy``
 writes one ``color_NNNNN.npy`` shard per chunk (+ ``geo_NNNNN.npy`` with
-``--with-geo``). Prints one JSON line with the generated videos/s.
+``--with-geo``); ``mp4`` writes one file per video under ``out/color``
+(+ the rendered geometry under ``out/<geometric_info>`` with
+``--with-geo``), numbered as ``cli.infer`` numbers them. Prints one JSON
+line with the generated videos/s.
+
+HTTP mode: ``--listen PORT`` serves requests over the same chunks instead of
+running a fixed number of them, and first prints ``{"listening": port, ...}``:
+
+- ``GET /healthz`` -> JSON {status, device, model info}
+- ``GET /stats`` -> JSON request and video counters
+- ``GET /generate?n=16&seed=0`` -> ``.npy`` bytes, uint8 (n, T, H, W, 3)
+- ``GET /generate?n=16&seed=0&geo=1`` -> ``.npz`` with ``color`` and ``geo``
+- ``POST /generate`` with a JSON body ``{"n": 16, "seed": 0, "geo": false}``
+  -> the same responses (query parameters are ignored on POST).
+
+An explicit ``seed`` pins the request to its own chunk stream, which
+replays the same bytes. Without one (or with ``seed=auto``) the request
+goes to the micro-batcher: requests that wait within ``--batch-window-ms``
+of each other share device chunks, dealt to them first come, first served.
+
+Bounds: at most ``queue_depth`` chunks in flight per request; a colour
+request streams one chunk at a time into the socket, a ``geo`` request is
+buffered (an npz does not stream) and so may ask for half as many videos;
+above ``--max-request-videos`` a request gets 413, and beyond
+``--max-concurrent`` requests at once 429 with ``Retry-After``.
 
 An explicit seed replays the same bytes, within the port and on one device
 type; bytes differ from the JAX package's, whose random streams differ.
@@ -28,21 +62,28 @@ type; bytes differ from the JAX package's, whose random streams differ.
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
+from queue import SimpleQueue
 from typing import Iterator, Optional, Sequence, Tuple
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 import torch
 
 from dcvgan_torch import prng
+from dcvgan_torch.cli.infer import load_run
 from dcvgan_torch.config import load_config
+from dcvgan_torch.io.video import write_videos_parallel
 from dcvgan_torch.train.step import DCVGAN
 from dcvgan_torch.train.state import GeneratorState
+from dcvgan_torch.utils.video_np import geometric_info_in_color_format
 
 
 def quantize(x: torch.Tensor) -> torch.Tensor:
@@ -127,19 +168,24 @@ def device_name(device: torch.device) -> str:
 class Sink:
     """Writes drained chunks; returns the bytes delivered to the host."""
 
-    def __init__(self, kind: str, out: Optional[Path], with_geo: bool = False):
-        if kind not in ("null", "npy"):
+    def __init__(self, kind: str, out: Optional[Path], geo_name: str, with_geo: bool):
+        if kind not in ("null", "npy", "mp4"):
             raise ValueError(f"unknown sink {kind!r}")
-        if kind == "npy" and out is None:
-            raise ValueError("the npy sink needs an output directory")
+        if kind != "null" and out is None:
+            raise ValueError(f"the {kind} sink needs an output directory")
         self.kind = kind
         self.out = out
+        self.geo_name = geo_name
         self.with_geo = with_geo and kind != "null"
         self.wants_color = kind != "null"
         self.pool = ThreadPoolExecutor(max_workers=4)
         self.futures = []
-        if out is not None and kind != "null":
+        if kind != "null":
             out.mkdir(parents=True, exist_ok=True)
+            if kind == "mp4":
+                (out / "color").mkdir(exist_ok=True)
+                if self.with_geo:
+                    (out / geo_name).mkdir(exist_ok=True)
 
     def write(self, chunk_idx: int, xg: Optional[np.ndarray], xc: Optional[np.ndarray]) -> int:
         if self.kind == "null":
@@ -148,9 +194,23 @@ class Sink:
         return xc.nbytes + (xg.nbytes if xg is not None else 0)
 
     def _write(self, chunk_idx: int, xg, xc) -> None:
-        np.save(self.out / f"color_{chunk_idx:05d}.npy", xc)
+        if self.kind == "npy":
+            np.save(self.out / f"color_{chunk_idx:05d}.npy", xc)
+            if xg is not None:
+                np.save(self.out / f"geo_{chunk_idx:05d}.npy", xg)
+            return
+        # mp4: (iters, B) flattened to videos, numbered as cli.infer numbers them
+        videos = xc.reshape((-1,) + xc.shape[2:])
+        base = chunk_idx * len(videos)
+        write_videos_parallel(
+            videos, [self.out / "color" / f"{base + i:06d}.mp4" for i in range(len(videos))]
+        )
         if xg is not None:
-            np.save(self.out / f"geo_{chunk_idx:05d}.npy", xg)
+            geo = xg.reshape((-1,) + xg.shape[2:]).astype(np.float32) / 127.5 - 1.0  # undo quantize
+            geo = geometric_info_in_color_format(geo, self.geo_name)
+            write_videos_parallel(
+                geo, [self.out / self.geo_name / f"{base + i:06d}.mp4" for i in range(len(geo))]
+            )
 
     def close(self) -> None:
         for f in self.futures:
@@ -233,7 +293,8 @@ class GenerationServer:
     Requests needing more than one chunk pipeline them (dispatch chunk k+1
     before fetching chunk k); dispatch is serialised under a lock, since one
     device has one compute stream here, while the host side of a fetch runs
-    outside it.
+    outside it. Counters, admission slots and the micro-batcher are the JAX
+    server's.
     """
 
     def __init__(
@@ -243,22 +304,50 @@ class GenerationServer:
         batchsize: int = 64,
         iters_per_chunk: int = 1,
         geo_name: str = "depth",
+        mesh=None,
         queue_depth: int = 2,
+        max_request_videos: int = 4096,
+        max_concurrent: int = 4,
+        batch_window_ms: float = 5.0,
     ):
+        if mesh is not None:
+            raise NotImplementedError("serving over a mesh is not ported yet (ROADMAP A12)")
         self.gan = gan
         self.state = state
         self.batchsize = batchsize
         self.iters = iters_per_chunk
         self.geo_name = geo_name
         self.queue_depth = max(1, queue_depth)
+        self.max_request_videos = max_request_videos
+        self._admission = threading.BoundedSemaphore(max(1, max_concurrent))
         self.chunk_fn = make_chunk_fn(gan, batchsize, iters_per_chunk)
         self._copy_stream = _copy_stream(gan)
-        self._lock = threading.Lock()
+        self._lock = threading.Lock()  # device dispatch order
+        self._counter_lock = threading.Lock()
         self._t0 = time.perf_counter()
+        self.counters = {"requests": 0, "videos_served": 0, "errors": 0,
+                         "rejected": 0, "batched_requests": 0, "batched_chunks": 0}
         _, _, xc = self._dispatch(prng.base_key(0, gan.device), False).result()
         self.video_shape = tuple(xc.shape[2:])  # (T, H, W, C)
+        self.batcher = MicroBatcher(self, window_s=batch_window_ms / 1000.0)
+
+    def close(self) -> None:
+        self.batcher.close()
+
+    def count(self, name: str, inc: int = 1) -> None:
+        with self._counter_lock:
+            self.counters[name] += inc
+
+    def admit(self) -> bool:
+        """Non-blocking admission slot; False means the caller should 429."""
+        return self._admission.acquire(blocking=False)
+
+    def release(self) -> None:
+        self._admission.release()
 
     def _dispatch(self, gen: torch.Generator, with_geo: bool) -> InFlight:
+        # InFlight records the chunk's event: it must stay inside the lock,
+        # or one chunk's copy could wait on another chunk's event
         with self._lock:
             return InFlight(self.chunk_fn(self.state, gen), self._copy_stream, True, with_geo)
 
@@ -287,6 +376,8 @@ class GenerationServer:
                 yield fetch_one()
         while pending:
             yield fetch_one()
+        self.count("requests")
+        self.count("videos_served", n)
 
     def generate(
         self, n: int, seed: int, with_geo: bool = False
@@ -310,40 +401,374 @@ class GenerationServer:
         }
 
 
-def main(argv: Optional[Sequence[str]] = None) -> dict:
+class _PendingRequest:
+    """One coalescable request: slices arrive on ``out`` as (geo, color)
+    tuples; ``None`` terminates, an Exception propagates a chunk failure."""
+
+    __slots__ = ("remaining", "with_geo", "out", "dead")
+
+    def __init__(self, n: int, with_geo: bool):
+        self.remaining = n
+        self.with_geo = with_geo
+        self.out: SimpleQueue = SimpleQueue()
+        self.dead = False  # consumer abandoned (client disconnect)
+
+
+class MicroBatcher:
+    """Coalesces concurrent seedless requests into shared device chunks.
+
+    One worker thread owns a server-side random stream. Each round it waits
+    up to ``window_s`` while the live demand is under one chunk, dispatches
+    ONE chunk (under the server's device lock, so it interleaves with seeded
+    requests), and deals the fetched videos to the waiting requests first
+    come, first served, as copies (the pinned chunk is free at once). N
+    concurrent small requests cost ``ceil(sum(n_i) / chunk)`` dispatches
+    instead of N. Geometry is fetched only in rounds where the head of the
+    queue wants it; a geo request behind colour-only traffic starts the
+    next round.
+    """
+
+    def __init__(self, server: GenerationServer, window_s: float = 0.005, seed: int = 0):
+        self.server = server
+        self.window_s = max(0.0, window_s)
+        self._cv = threading.Condition()
+        self._waiting: deque = deque()
+        self._closed = False
+        # a stream of its own, apart from every client-pinned seed's stream
+        self._key = prng.named(prng.base_key(seed, server.gan.device), "serve-microbatch")
+        self._step = 0
+        self._thread = threading.Thread(target=self._loop, daemon=True, name="serve-microbatcher")
+        self._thread.start()
+
+    def close(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._thread.join(timeout=5)
+
+    def submit(self, n: int, with_geo: bool = False):
+        """Yield ``(geo | None, color)`` uint8 slices totalling n videos."""
+        req = _PendingRequest(n, with_geo)
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("server is shutting down")
+            self._waiting.append(req)
+            self._cv.notify_all()
+        try:
+            while True:
+                item = req.out.get()
+                if item is None:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+            self.server.count("requests")
+            self.server.count("batched_requests")
+            self.server.count("videos_served", n)
+        finally:
+            # consumer gone (disconnect or error): stop generating for it
+            with self._cv:
+                req.dead = True
+                if req in self._waiting:
+                    self._waiting.remove(req)
+
+    def _live(self):
+        return [r for r in self._waiting if not r.dead]
+
+    def _loop(self) -> None:
+        capacity = self.server.batchsize * self.server.iters
+        while True:
+            with self._cv:
+                while not self._live() and not self._closed:
+                    self._cv.wait()
+                if self._closed:
+                    for r in self._live():
+                        r.out.put(RuntimeError("server is shutting down"))
+                    self._waiting.clear()
+                    return
+                # coalescing window: let concurrent arrivals join this chunk
+                deadline = time.perf_counter() + self.window_s
+                while sum(r.remaining for r in self._live()) < capacity:
+                    left = deadline - time.perf_counter()
+                    if left <= 0:
+                        break
+                    self._cv.wait(timeout=left)
+                live = self._live()
+                if not live:  # every waiter died during the window
+                    continue
+                want_geo = live[0].with_geo
+            k = self._step
+            self._step += 1
+            try:
+                _, xg, xc = self.server._dispatch(prng.for_step(self._key, k), want_geo).result()
+                color = xc.reshape((-1,) + xc.shape[2:])
+                geo = xg.reshape((-1,) + xg.shape[2:]) if want_geo else None
+            except Exception as e:
+                # fail only the requests this chunk was dispatched for;
+                # arrivals during it stay queued for the next round
+                self.server.count("errors")
+                with self._cv:
+                    for r in live:
+                        if not r.dead:
+                            r.out.put(e)
+                        if r in self._waiting:
+                            self._waiting.remove(r)
+                continue
+            self.server.count("batched_chunks")
+            off = 0
+            with self._cv:
+                while off < len(color) and self._waiting:
+                    r = self._waiting[0]
+                    if r.dead:
+                        self._waiting.popleft()
+                        continue
+                    if r.with_geo and geo is None:
+                        break  # the next round fetches geometry for this head
+                    take = min(r.remaining, len(color) - off)
+                    r.out.put((
+                        geo[off:off + take].copy() if r.with_geo else None,
+                        color[off:off + take].copy(),
+                    ))
+                    r.remaining -= take
+                    off += take
+                    if r.remaining == 0:
+                        r.out.put(None)
+                        self._waiting.popleft()
+
+
+class _Handler(BaseHTTPRequestHandler):
+    server_version = "dcvgan-torch-serve/1.0"
+    gen: GenerationServer  # set on the handler class by serve_http
+
+    def log_message(self, fmt, *args):  # quiet: the stats endpoint instead
+        pass
+
+    def _json(self, code: int, payload: dict, headers: Sequence[Tuple[str, str]] = ()) -> None:
+        body = json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        for name, value in headers:
+            self.send_header(name, value)
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self) -> None:
+        url = urlparse(self.path)
+        if url.path == "/healthz":
+            self._json(200, self.gen.info())
+            return
+        if url.path == "/stats":
+            with self.gen._counter_lock:
+                counters = dict(self.gen.counters)
+            self._json(200, dict(counters, **self.gen.info()))
+            return
+        if url.path != "/generate":
+            self._json(404, {"error": f"unknown path {url.path}"})
+            return
+        self._generate(parse_qs(url.query))
+
+    def do_POST(self) -> None:
+        """POST /generate with a JSON body {"n": .., "seed": .., "geo": ..}."""
+        url = urlparse(self.path)
+        if url.path != "/generate":
+            self._json(404, {"error": f"unknown path {url.path}"})
+            return
+        try:
+            length = int(self.headers.get("Content-Length", 0) or 0)
+            if length > 1_000_000:
+                self._json(413, {"error": "request body too large"})
+                return
+            if length < 0:
+                # rfile.read(-1) would block until EOF, holding this handler
+                # thread for as long as the client keeps the socket open
+                raise ValueError(f"bad Content-Length {length}")
+            body = json.loads(self.rfile.read(length) or b"{}")
+            if not isinstance(body, dict):
+                raise ValueError("body must be a JSON object")
+        except ValueError as e:  # json.JSONDecodeError is a ValueError
+            self.gen.count("errors")
+            self._json(400, {"error": f"bad JSON body: {e}"})
+            return
+        self._generate({k: [str(v)] for k, v in body.items()})
+
+    def _generate(self, q: dict) -> None:
+        try:
+            n = int(q.get("n", ["16"])[0])
+            raw_seed = q.get("seed", ["auto"])[0]
+            seed = None if str(raw_seed).lower() in ("auto", "none", "") else int(raw_seed)
+            with_geo = q.get("geo", ["0"])[0].lower() not in ("0", "", "false", "none")
+            if n < 1:
+                raise ValueError(f"n={n} must be >= 1")
+        except ValueError as e:
+            self.gen.count("errors")
+            self._json(400, {"error": str(e)})
+            return
+        limit = self.gen.max_request_videos
+        if with_geo:
+            limit //= 2  # npz responses are buffered and carry two arrays
+        if n > limit:
+            self.gen.count("rejected")
+            self._json(413, {
+                "error": f"n={n} exceeds the per-request limit {limit}"
+                + (" (geo responses are buffered)" if with_geo else ""),
+                "max_request_videos": limit,
+            })
+            return
+        if not self.gen.admit():
+            self.gen.count("rejected")
+            self._json(429, {"error": "server at max concurrent generate requests"},
+                       headers=[("Retry-After", "1")])
+            return
+        try:
+            if seed is None:  # server-picked stream: coalescable
+                chunks = self.gen.batcher.submit(n, with_geo)
+            else:  # pinned stream: replayable chunks of its own
+                chunks = self.gen.generate_chunks(n, seed, with_geo)
+            if with_geo:
+                self._respond_npz(chunks)
+            else:
+                self._stream_npy(n, chunks)
+        finally:
+            self.gen.release()
+
+    def _respond_npz(self, chunks) -> None:
+        """Buffered npz response (color + geo); bounded by the videos cap."""
+        try:
+            geos, colors = [], []
+            for geo, color in chunks:
+                geos.append(geo)
+                colors.append(color)
+            geo, color = np.concatenate(geos), np.concatenate(colors)
+            buf = io.BytesIO()
+            np.savez(buf, color=color, geo=geo)
+        except Exception as e:  # device or copy failure: 500, keep serving
+            self.gen.count("errors")
+            self._json(500, {"error": f"{type(e).__name__}: {e}"})
+            return
+        body = buf.getvalue()
+        self.send_response(200)
+        self.send_header("Content-Type", "application/x-npz")
+        self.send_header("Content-Length", str(len(body)))
+        self.send_header("X-Video-Shape", "x".join(map(str, color.shape)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _stream_npy(self, n: int, chunks) -> None:
+        """Stream an npy payload chunk by chunk: the npy header is computed
+        from the known video shape, so Content-Length is exact and the host
+        holds one device chunk at a time, not the payload."""
+        shape = (n,) + self.gen.video_shape
+        hdr = io.BytesIO()
+        np.lib.format.write_array_header_1_0(
+            hdr, {"descr": "|u1", "fortran_order": False, "shape": shape}
+        )
+        header = hdr.getvalue()
+        total = len(header) + int(np.prod(shape))
+        try:
+            first = next(chunks)  # surface device failures before headers go out
+        except Exception as e:
+            self.gen.count("errors")
+            self._json(500, {"error": f"{type(e).__name__}: {e}"})
+            return
+        self.send_response(200)
+        self.send_header("Content-Type", "application/x-npy")
+        self.send_header("Content-Length", str(total))
+        self.send_header("X-Video-Shape", "x".join(map(str, shape)))
+        self.end_headers()
+        try:
+            self.wfile.write(header)
+            self.wfile.write(np.ascontiguousarray(first[1]).data)
+            for _, color in chunks:
+                self.wfile.write(np.ascontiguousarray(color).data)
+        except Exception:  # mid-stream failure: the connection dies, the server lives
+            self.gen.count("errors")
+            self.close_connection = True
+
+
+def serve_http(gen: GenerationServer, port: int) -> ThreadingHTTPServer:
+    """Bind a ThreadingHTTPServer for ``gen`` on ``port`` (0 = ephemeral)."""
+    handler = type("BoundHandler", (_Handler,), {"gen": gen})
+    return ThreadingHTTPServer(("", port), handler)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--config", type=Path, required=True)
-    parser.add_argument("--weights", type=Path, default=None)
+    parser.add_argument("result_dir", type=Path, nargs="?", help="a run directory of the port")
+    parser.add_argument("iteration", type=int, nargs="?", help="its checkpoint step (-1: the latest)")
+    parser.add_argument("--config", type=Path, default=None,
+                        help="start from a config instead of a run directory")
+    parser.add_argument("--weights", type=Path, default=None,
+                        help="with --config: an npz written from a JAX state")
     parser.add_argument("--batchsize", "-b", type=int, default=256)
     parser.add_argument("--iters-per-chunk", type=int, default=4)
     parser.add_argument("--chunks", type=int, default=8)
-    parser.add_argument("--sink", choices=["null", "npy"], default="null")
+    parser.add_argument("--sink", choices=["null", "npy", "mp4"], default="null")
     parser.add_argument("--out", type=Path, default=None)
     parser.add_argument("--with-geo", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--queue-depth", type=int, default=2)
-    parser.add_argument(
-        "--no-ema",
-        action="store_true",
-        help="serve the live generator params even when the weights carry an EMA",
-    )
-    parser.add_argument(
-        "--device", default=None, help="torch device (default cuda; 'cpu' runs on the CPU)"
-    )
+    parser.add_argument("--listen", type=int, default=None, metavar="PORT",
+                        help="start the HTTP serving endpoint instead of a fixed-chunk run")
+    parser.add_argument("--max-request-videos", type=int, default=4096,
+                        help="per-request n cap (413 beyond it); geo requests are capped "
+                        "at half of it because npz responses are buffered")
+    parser.add_argument("--max-concurrent", type=int, default=4,
+                        help="concurrent /generate requests admitted before 429")
+    parser.add_argument("--batch-window-ms", type=float, default=5.0,
+                        help="micro-batching window: how long an unseeded request waits "
+                        "for concurrent arrivals to share its device chunk")
+    parser.add_argument("--mesh", type=int, default=1, metavar="N",
+                        help="devices to shard each chunk over; only 1 is ported (ROADMAP A12)")
+    parser.add_argument("--no-ema", action="store_true",
+                        help="serve the live generator params even when the weights carry an EMA")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default cuda; 'cpu' runs on the CPU)")
     args = parser.parse_args(argv)
+    if (args.config is None) == (args.result_dir is None):
+        parser.error("give either <result_dir> <iteration> or --config")
+    if args.result_dir is not None and args.iteration is None:
+        parser.error("a run directory needs an iteration (-1: the latest)")
+    if args.weights is not None and args.config is None:
+        parser.error("--weights goes with --config")
     if args.sink != "null" and args.out is None:
         parser.error(f"--sink {args.sink} requires --out DIR")
+    if args.mesh != 1:
+        raise NotImplementedError(f"--mesh {args.mesh}: serving over a mesh is not ported yet "
+                                  "(ROADMAP A12)")
 
-    cfg = load_config(args.config)
-    gan = DCVGAN(cfg, device=args.device)
-    if args.weights:
-        state = gan.load_state(args.weights)
-    else:
+    if args.config is not None:
+        cfg = load_config(args.config)
+        gan = DCVGAN(cfg, device=args.device)
         # the serving copy of a fresh state: parameters cast once to the compute dtype
-        state = gan.init_state(cfg.seed).generators()
+        state = gan.load_state(args.weights) if args.weights else gan.init_state(cfg.seed).generators()
+    else:
+        cfg, gan, run = load_run(args.result_dir, args.iteration, device=args.device)
+        state = run.generators()
     if not args.no_ema:
         state = state.with_ema_params()
-    sink = Sink(args.sink, args.out, args.with_geo)
+
+    if args.listen is not None:
+        gen = GenerationServer(
+            gan,
+            state,
+            batchsize=args.batchsize,
+            iters_per_chunk=args.iters_per_chunk,
+            geo_name=cfg.geometric_info.name,
+            queue_depth=args.queue_depth,
+            max_request_videos=args.max_request_videos,
+            max_concurrent=args.max_concurrent,
+            batch_window_ms=args.batch_window_ms,
+        )
+        httpd = serve_http(gen, args.listen)
+        print(json.dumps({"listening": httpd.server_address[1], **gen.info()}), flush=True)
+        try:
+            httpd.serve_forever()
+        finally:
+            httpd.server_close()
+            gen.close()
+        return None
+    sink = Sink(args.sink, args.out, cfg.geometric_info.name, args.with_geo)
     stats = serve(
         gan,
         state,

@@ -67,12 +67,12 @@ def _gan():
 
 def test_serve_replays_and_checksums_every_pixel(tmp_path):
     gan, state = _gan()
-    a = serve(gan, state, 2, 2, 2, Sink("null", None), seed=3)
-    b = serve(gan, state, 2, 2, 2, Sink("null", None), seed=3)
+    a = serve(gan, state, 2, 2, 2, Sink("null", None, "depth", False), seed=3)
+    b = serve(gan, state, 2, 2, 2, Sink("null", None, "depth", False), seed=3)
     assert a["videos"] == 8 and a["device"] == "cpu" and a["value"] > 0
     assert a["checksum"] == b["checksum"]
     out = tmp_path / "shards"
-    c = serve(gan, state, 2, 2, 2, Sink("npy", out, with_geo=True), seed=3)
+    c = serve(gan, state, 2, 2, 2, Sink("npy", out, "depth", with_geo=True), seed=3)
     assert c["checksum"] == a["checksum"]
     color = [np.load(p) for p in sorted(out.glob("color_*.npy"))]
     geo = [np.load(p) for p in sorted(out.glob("geo_*.npy"))]

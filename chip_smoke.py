@@ -30,13 +30,28 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
    frame count of ``log_samples``' round, as before each later path at its
    own); then a seeded replay of 3 steps, a uint8 against float batch, a
    checkpoint round trip, and a profile of one step;
-7. the evaluation path: ``Trainer.evaluate`` on the trained state with
+7. the lever path: the four repo configs that set a train-step lever
+   (``demo-synthetic-{fastpath,quirks,sharedfakes}.yml`` and
+   ``headtohead-tpu-seed0-10k-stable-gn.yml``, ``trainer.norm: group``) as
+   they stand, each through ``Trainer.train()`` for 12 steps on the
+   synthetic dataset, counters from 0 just before and read just after:
+   ``dequantize_video`` once a step, ``fused_norm_act_conv`` only in
+   ``log_samples`` (5 per cgen forward under BatchNorm, none under
+   GroupNorm); finite losses, first critic losses near 2 ln 2, a
+   checkpoint round trip, the quirks run's Adam counts; torch's Adam
+   keeps ``.grad`` over two steps; the GroupNorm run served through
+   ``load_run`` + ``GenerationServer`` (seeded bytes replay, no fused
+   launch); ``remat`` on against off (f32, ngf 32) and a
+   ``critic_stat_reuse`` bf16 step against the same step on the CPU; then
+   the flagship's train it/s and peak memory under six lever settings, each
+   in turns with levers off, and remat's peak memory;
+8. the evaluation path: ``Trainer.evaluate`` on the trained state with
    ``configs/mug-depth.yml``'s evaluation block (IS and FID of 200 samples,
    the v2 extractor npz, the synthetic dataset as the real side), the
    device-resident and host paths held to the same scores;
-8. the inference path: ``cli.infer`` on the training run (40 videos, mp4s
+9. the inference path: ``cli.infer`` on the training run (40 videos, mp4s
    read back), then ``cli.evaluate`` of the colour directory;
-9. the HTTP path: ``cli.serve``'s ``GenerationServer`` on the training run
+10. the HTTP path: ``cli.serve``'s ``GenerationServer`` on the training run
    behind ``serve_http`` in this process: seeded bytes over two chunks and a
    geo npz equal to ``generate``, a 400, a 413 and a 429, ``/stats`` equal to
    what was sent; the latency, delivered videos/s, delivered share, idle
@@ -44,7 +59,7 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
    n=16 requests at two server shapes (64 x 1 round and 256 x 4 rounds a
    chunk); then ``cli.serve <run> -1 --sink mp4 --with-geo`` (128 + 128
    mp4s read back); counters set to 0 just before and read just after;
-10. a ``{"kernels": [...]}`` line, the card's line, and last
+11. a ``{"kernels": [...]}`` line, the card's line, and last
     ``{"ok": true, "device": {...}}``.
 
 Every phase prints its numbers as it goes. Imports nothing of JAX.
@@ -52,6 +67,8 @@ Every phase prints its numbers as it goes. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import http.client
 import importlib.metadata
 import importlib.util
@@ -76,14 +93,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 N_FRAMES = 4096  # batch 256 x 16 frames: the flagship serve call
-# cgen down1..down5 at 64 px, ngf 64: (name, H = W of x, C, Cout)
-SITES = [
-    ("down1", 32, 64, 128),
-    ("down2", 16, 128, 256),
-    ("down3", 8, 256, 256),
-    ("down4", 4, 256, 256),
-    ("down5", 2, 256, 256),
-]
+FLAGSHIP = "mug-depth"  # configs/mug-depth.yml: ngf 64, 64 px
 # out: |kernel - plain| <= atol + rtol * |plain|. bf16: both sum the same
 # exact bf16 products in f32, in another order, so the outputs may round to
 # neighbouring bf16 values (one ulp <= 2^-7 relative). f32: summation order
@@ -193,21 +203,39 @@ def check_kernel(fused, plain, n, h, c, cout, dtype, xn, slope=0.2, shift_offset
     return err
 
 
-def check_sites(n: int, path: str) -> float:
-    """The kernel against its plain version at the five sites at ``n``
-    frames, the frame count one sampling round of ``path`` gives it (its
-    tile table and persistent schedule depend on ``n``), in bf16 and f32,
-    with and without ``xn_out``; returns the largest max |diff|. Called
-    outside the paths' counted runs."""
+def cgen_sites(cfg) -> list:
+    """The fused kernel's sites in one eval-mode cgen forward of ``cfg``:
+    (name, H = W of x, C, Cout) of down1..down5, from its ngf and image size
+    (at ngf 64, 64 px: 32 px 64 -> 128, 16 px 128 -> 256, then 256 -> 256)."""
+    from dcvgan_torch.models.cgen import ColorVideoGenerator
+
+    widths = [cfg.cgen.ngf * m for m in ColorVideoGenerator._down_mults(cfg.image_size)]
+    return [(f"down{i}", cfg.image_size >> i, widths[i - 1], widths[i]) for i in range(1, len(widths))]
+
+
+def flagship_sites() -> list:
+    from dcvgan_torch.config import load_config
+
+    return cgen_sites(load_config(ROOT / "configs" / f"{FLAGSHIP}.yml"))
+
+
+def check_sites(n: int, path: str, sites: list) -> float:
+    """The kernel against its plain version at ``sites`` (the widths of the
+    path's cgen, :func:`cgen_sites`) and ``n`` frames, the frame count one
+    sampling round of ``path`` gives it (its route, tile table and
+    persistent schedule depend on C, Cout and ``n``), in bf16 and f32, with
+    and without ``xn_out``; returns the largest max |diff|. Called outside
+    the paths' counted runs."""
     from dcvgan_torch.ops.fused_block import fused_norm_act_conv, reference_norm_act_conv
 
     errs = []
     for dtype in (torch.bfloat16, torch.float32):
-        for name, h, c, cout in SITES:
+        for name, h, c, cout in sites:
             for xn in (True, False):
                 e = check_kernel(fused_norm_act_conv, reference_norm_act_conv, n, h, c, cout, dtype, xn)
                 errs.append(e)
-                print(f"check {path} N={n} {name} {str(dtype)[6:]} xn_out={xn}: max|diff| {e:.3e} "
+                print(f"check {path} N={n} {name} C={c} Cout={cout} {str(dtype)[6:]} xn_out={xn}: "
+                      f"max|diff| {e:.3e} "
                       f"(tol {OUT_TOL[dtype][0]:g} + {OUT_TOL[dtype][1]:g}*|plain|)", flush=True)
     torch.cuda.empty_cache()
     return max(errs)
@@ -219,7 +247,8 @@ def phase_kernels() -> dict:
     from dcvgan_torch.ops.fused_block import (
         Plan, fused_norm_act_conv, launch, plan_for, reference_norm_act_conv)
 
-    errs = [check_sites(N_FRAMES, "serve")]
+    sites_64 = flagship_sites()
+    errs = [check_sites(N_FRAMES, "serve", sites_64)]
     for dtype in (torch.bfloat16, torch.float32):
         # LeakyReLU slope 0.01 with a shift large enough that the activation
         # branches differently and padding != leaky_relu(shift) would show
@@ -241,7 +270,7 @@ def phase_kernels() -> dict:
 
     sites = []
     for dtype in (torch.bfloat16, torch.float32):
-        for name, h, c, cout in SITES:
+        for name, h, c, cout in sites_64:
             x, scale, shift, w = kernel_inputs(N_FRAMES, h, c, cout, dtype, seed=1)
             xn = torch.empty_like(x)
             reference_norm_act_conv(x, scale, shift, w, 0.2, xn_out=xn)  # for the library call
@@ -302,8 +331,6 @@ def redrawn(module, seed: int):
     """A copy of ``module`` with weights and BatchNorm statistics drawn at a
     scale that keeps activations O(1) (the reference init shrinks them layer
     by layer, which would make a comparison of outputs say little)."""
-    import copy
-
     m = copy.deepcopy(module)
     g = torch.Generator(device="cuda").manual_seed(seed)
     with torch.no_grad():
@@ -434,6 +461,9 @@ KERNEL_KINDS = [
     ("conv / conv-transpose (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad", "fprop")),
     ("matmul (GRU)", ("gemm", "gemv")),
     ("batch norm", ("batch_norm", "bn_fw", "batchnorm")),
+    ("group norm", ("GroupNorm", "group_norm", "RowwiseMoments", "ComputeFusedParams",
+                    "Compute1dBackward", "ComputeInternalGradients", "ComputeBackwardFusedParams",
+                    "GammaBeta")),
     ("concat / copy", ("cat", "copy", "Copy")),
 ]
 
@@ -687,6 +717,27 @@ def phase_dequant() -> dict:
     }
 
 
+def check_dequant_batch(batch: dict, path: str) -> float:
+    """``dequantize_videos`` of one loader batch of ``path`` (its colour and
+    depth videos in one launch, as its train step makes it) against the plain
+    version per tensor, bit for bit, in bf16 and f32; returns the largest
+    |diff|. Called outside the path's counted run."""
+    from dcvgan_torch.ops.dequant import dequantize_videos, reference_dequantize
+
+    xs = list(batch.values())
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for x, y in zip(xs, dequantize_videos(xs, dtype)):
+            want = reference_dequantize(x, dtype)
+            if y.shape != x.shape or y.dtype != dtype or not torch.equal(y, want):
+                raise AssertionError(f"dequantize_videos {path} {str(dtype)[6:]}: differs from the plain "
+                                     f"version at shape {tuple(x.shape)}")
+            worst = max(worst, (y.float() - want.float()).abs().max().item())
+    print(f"check dequant {path}: {[tuple(x.shape) for x in xs]} uint8 in one launch equal the plain "
+          "version per tensor bit for bit, bf16 and f32", flush=True)
+    return worst
+
+
 TRAIN_EPOCHS, LOG_EVERY = 14, 6  # 3 batches of 20 per epoch of 64 videos: 42 steps
 
 
@@ -707,19 +758,12 @@ def train_config(root: Path):
     return cfg
 
 
-def phase_train(card: str):
-    from dcvgan_torch import prng
-    from dcvgan_torch.cli.train import build_dataset
-    from dcvgan_torch.data.loader import VideoLoader
+def recorder(run_dir: Path):
+    """A ``Logger`` that keeps every value the trainer logs (``.seen``),
+    beside logging it."""
     from dcvgan_torch.logging.logger import Logger
-    from dcvgan_torch.ops.dequant import dequantize_video, reference_dequantize
-    from dcvgan_torch.ops.fused_block import fused_norm_act_conv
-    from dcvgan_torch.train.step import DCVGAN
-    from dcvgan_torch.train.trainer import LOSS_NAMES, Trainer
 
     class Recorder(Logger):
-        """Keeps every value the trainer logs, beside logging it."""
-
         def __init__(self, *args):
             super().__init__(*args)
             self.seen = {}
@@ -727,6 +771,41 @@ def phase_train(card: str):
         def update(self, name, value):
             self.seen.setdefault(name, []).append(value)
             super().update(name, value)
+
+    return Recorder(run_dir, None)
+
+
+def check_restore(trainer, state, cfg) -> int:
+    """The run's last checkpoint restores every state tensor equal (model
+    state dicts and Adam's state); returns how many."""
+    from dcvgan_torch.train.step import DCVGAN
+
+    restored = trainer.ckpt.restore(DCVGAN(cfg).init_state(cfg.seed + 1))
+    if restored.step != state.step:
+        raise AssertionError("the checkpoint restored another step")
+    n_equal = 0
+    for name in state.models:
+        a, b = state.models[name].state_dict(), restored.models[name].state_dict()
+        oa, ob = state.opt[name].state_dict()["state"], restored.opt[name].state_dict()["state"]
+        pairs = [(a[k], b[k]) for k in a] + [
+            (oa[i][k], ob[i][k]) for i in oa for k in ("step", "exp_avg", "exp_avg_sq")]
+        for x, y in pairs:
+            if not torch.equal(x.cpu(), y.cpu()):
+                raise AssertionError(f"{name}: a restored tensor differs")
+            n_equal += 1
+    print(f"checkpoint {trainer.ckpt.latest_step()} of {cfg.experiment_name}: {n_equal} tensors "
+          "restore equal", flush=True)
+    return n_equal
+
+
+def phase_train(card: str):
+    from dcvgan_torch import prng
+    from dcvgan_torch.cli.train import build_dataset
+    from dcvgan_torch.data.loader import VideoLoader
+    from dcvgan_torch.ops.dequant import dequantize_video, reference_dequantize
+    from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+    from dcvgan_torch.train.step import DCVGAN
+    from dcvgan_torch.train.trainer import LOSS_NAMES, Trainer
 
     tmp = tempfile.TemporaryDirectory(prefix="dcvgan_smoke_")
     root = Path(tmp.name)
@@ -736,9 +815,9 @@ def phase_train(card: str):
     print(f"synthetic dataset: {len(dataset)} videos written and listed in "
           f"{time.perf_counter() - t0:.1f} s (cv2 JPEG frames)", flush=True)
     run_dir = Path(cfg.log_dir) / cfg.experiment_name
-    logger = Recorder(run_dir, None)
+    logger = recorder(run_dir)
     # the fused kernel at the frame count of log_samples' one sampling round
-    fused_err = check_sites(Trainer.NUM_LOG * cfg.video_length, "train log_samples")
+    fused_err = check_sites(Trainer.NUM_LOG * cfg.video_length, "train log_samples", cgen_sites(cfg))
 
     torch.cuda.reset_peak_memory_stats()
     fused_norm_act_conv.launches = 0
@@ -777,21 +856,7 @@ def phase_train(card: str):
           f"{[round(w, 2) for w in windows]}) on {card}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
 
-    # a checkpoint was written and restores to equal tensors
-    restored = trainer.ckpt.restore(DCVGAN(cfg).init_state(cfg.seed + 1))
-    if restored.step != state.step:
-        raise AssertionError("the checkpoint restored another step")
-    n_equal = 0
-    for name in state.models:
-        a, b = state.models[name].state_dict(), restored.models[name].state_dict()
-        oa, ob = state.opt[name].state_dict()["state"], restored.opt[name].state_dict()["state"]
-        pairs = [(a[k], b[k]) for k in a] + [
-            (oa[i][k], ob[i][k]) for i in oa for k in ("step", "exp_avg", "exp_avg_sq")]
-        for x, y in pairs:
-            if not torch.equal(x.cpu(), y.cpu()):
-                raise AssertionError(f"{name}: a restored tensor differs")
-            n_equal += 1
-    print(f"checkpoint {trainer.ckpt.latest_step()}: {n_equal} tensors restore equal", flush=True)
+    check_restore(trainer, state, cfg)
 
     # seeded replay, and a uint8 batch against the same batch as floats
     with VideoLoader(dataset, cfg.batchsize, n_workers=2, seed=1) as loader:
@@ -849,6 +914,484 @@ def phase_train(card: str):
     return out
 
 
+# ------------------------------------------------------------------ levers
+# the four repo configs that set a train-step lever, as they stand (their own
+# widths, batch and precision), each trained for 12 steps on 48 synthetic
+# videos: 4 epochs at batch 16, 2 at batch 8
+LEVER_CONFIGS = ("demo-synthetic-fastpath", "demo-synthetic-quirks",
+                 "demo-synthetic-sharedfakes", "headtohead-tpu-seed0-10k-stable-gn")
+LEVER_STEPS, LEVER_VIDEOS = 12, 48
+# remat on against off, f32 at ngf 32, one step from one state and the same
+# draws, with cuDNN held to its deterministic algorithms while they run (its
+# default weight-gradient kernels sum with atomics, and Adam's first step
+# turns a gradient of rounding noise into +-lr, which the G phase would then
+# meet in the critics). Held on the generators' gradients, which a dropout
+# mask redrawn in the recompute would change: relative L2 per model within
+# REMAT_GRAD_L2 (the backward may add the gradients that meet at one tensor
+# in another order); losses and running statistics within their atols.
+# The same step with the G phase's masks drawn anew must move those
+# gradients by more than REMAT_CONTROL_L2, or the check could not fail.
+# Measured on an H100 80GB HBM3 at 700 W: losses, statistics and gradients
+# equal bit for bit, plain and trio (so are two runs without remat); other
+# masks move the gradients by 0.088-0.43.
+REMAT_LOSS_ATOL, REMAT_STATS_ATOL, REMAT_GRAD_L2, REMAT_CONTROL_L2 = 1e-5, 1e-6, 1e-4, 1e-2
+# the critic_stat_reuse step on the card against the same step on the CPU
+# (plain versions), from one state and the same draws. bf16: every conv
+# rounds to bf16 in another order; the losses are softplus means of O(1)
+# logits (the CPU suite holds bf16 losses at 1e-2 against JAX); held at
+# 2e-2 (measured 8.8e-4). The generators' bf16 gradients sum that rounding
+# over ~30 layers backward from a reference init and are printed, not held
+# (0.10 and 0.18 in relative L2). f32 (TF32 off): the same step differs by
+# summation order only; the generators' gradients, which pass backward
+# through the critics' eval-mode BatchNorms, measured 4.3e-4 to 1.7e-3 in
+# relative L2 over two runs, held at 5e-3 (a wrong backward through an
+# eval-mode BatchNorm is off by tens of percent); the losses at 1e-4
+# (measured 2.4e-7). All measured on an H100 80GB HBM3 at 700 W.
+REUSE_BF16_LOSS_ATOL, REUSE_F32_LOSS_ATOL, REUSE_F32_GRAD_L2 = 2e-2, 1e-4, 5e-3
+# one eval-mode BatchNorm3d, bf16 activations and f32 parameters, forward
+# and backward on the card against the CPU: the output and the input's
+# gradient are f32 values rounded once to bf16 (one ulp, 2^-7 of the
+# value); the parameters' gradients are f32 sums over 14,336 products a
+# channel in another order
+BN_BF16_RTOL, BN_PARAM_GRAD_RTOL = 2.0**-7, 1e-4
+# the flagship lever settings timed in turns against levers off
+LEVER_SETTINGS = {
+    "trio": {"shared_fakes": True, "critic_joint_batch": True, "critic_stat_reuse": True},
+    "shared_fakes": {"shared_fakes": True},
+    "critic_joint_batch": {"critic_joint_batch": True},
+    "critic_stat_reuse": {"critic_stat_reuse": True},
+    "ggen_double_step": {"ggen_double_step": True},
+    "norm_group": {"norm": "group"},
+}
+LEVER_TIMED_STEPS = 42
+
+
+def lever_config(name: str, root: Path):
+    """``configs/<name>.yml`` on the synthetic dataset under ``root``, 12
+    steps, no evaluation, no interval saves or sample rounds."""
+    from dcvgan_torch.config import load_config
+
+    cfg = load_config(ROOT / "configs" / f"{name}.yml")
+    cfg.dataset.name, cfg.dataset.cache_decoded = "synthetic", True
+    cfg.dataset.path = str(root / "raw")
+    cfg.dataset.processed_root = str(root / "processed")
+    cfg.dataset.number_limit = LEVER_VIDEOS
+    cfg.evaluation.metrics = []
+    cfg.log_dir, cfg.tensorboard_dir = str(root / "levers"), str(root / "levers" / "runs")
+    cfg.n_epochs = LEVER_STEPS // (LEVER_VIDEOS // cfg.batchsize)
+    cfg.log_interval = 6
+    cfg.snapshot_interval = cfg.log_samples_interval = cfg.evaluation_interval = 10**9
+    return cfg
+
+
+def train_lever_config(name: str, root: Path) -> dict:
+    """``Trainer.train()`` of one lever config, counters from 0 just before
+    and read just after: ``dequantize_video`` once a step, and
+    ``fused_norm_act_conv`` only inside ``log_samples`` (5 per cgen forward
+    under BatchNorm, none under GroupNorm), never in a train step."""
+    from dcvgan_torch.cli.train import build_dataset
+    from dcvgan_torch.ops.dequant import dequantize_video
+    from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+    from dcvgan_torch.train.trainer import LOSS_NAMES, Trainer
+
+    class CountingTrainer(Trainer):
+        """Counts the fused launches of its sample rounds."""
+
+        sample_rounds = sample_launches = 0
+
+        def log_samples(self, iteration):
+            before = fused_norm_act_conv.launches
+            super().log_samples(iteration)
+            self.sample_rounds += 1
+            self.sample_launches += fused_norm_act_conv.launches - before
+
+    cfg = lever_config(name, root)
+    dataset = build_dataset(cfg)
+    logger = recorder(Path(cfg.log_dir) / cfg.experiment_name)
+    # both kernels at the shapes this path gives them: dequant at the
+    # config's batch, the fused kernel at its cgen widths and the frame
+    # count of log_samples' one sampling round (BatchNorm only)
+    dequant_err = check_dequant_batch(device_batches(dataset, cfg.batchsize, 1)[0], f"lever {name}")
+    fused_err = 0.0
+    if cfg.trainer.norm == "batch":
+        fused_err = check_sites(Trainer.NUM_LOG * cfg.video_length, f"lever {name} log_samples",
+                                cgen_sites(cfg))
+    fused_norm_act_conv.launches = 0
+    dequantize_video.launches = 0
+    # -- main path: counts from 0 ------------------------------------------
+    t0 = time.perf_counter()
+    trainer = CountingTrainer(cfg, dataset, logger=logger)
+    state = trainer.train()
+    torch.cuda.synchronize()
+    dq, fused = dequantize_video.launches, fused_norm_act_conv.launches
+    # -- end of main path ----------------------------------------------------
+    train_s = time.perf_counter() - t0
+    per_forward = 0 if cfg.trainer.norm == "group" else 5
+    print(f"lever {name} (norm {cfg.trainer.norm}, batch {cfg.batchsize}, {cfg.trainer.precision}): "
+          f"{state.step} steps in {train_s:.1f} s; dequantize_video launches {dq}; "
+          f"fused_norm_act_conv launches {fused} ({trainer.sample_launches} in "
+          f"{trainer.sample_rounds} log_samples rounds)", flush=True)
+    if state.step != LEVER_STEPS or dq != LEVER_STEPS:
+        raise AssertionError(f"{name}: expected {LEVER_STEPS} steps and dequant launches")
+    if fused != trainer.sample_launches:
+        raise AssertionError(f"{name}: a train step launched fused_norm_act_conv")
+    if trainer.sample_launches != per_forward * trainer.sample_rounds or not trainer.sample_rounds:
+        raise AssertionError(f"{name}: expected {per_forward} fused launches per sample round")
+    losses = {k: logger.seen[k] for k in LOSS_NAMES}
+    for k, v in losses.items():
+        if len(v) != LEVER_STEPS or not all(math.isfinite(x) for x in v):
+            raise AssertionError(f"{name} {k}: {len(v)} values, not all finite")
+    first = {k: v[0] for k, v in losses.items()}
+    print(f"lever {name}: first step " + json.dumps(first) + " last step "
+          + json.dumps({k: v[-1] for k, v in losses.items()}), flush=True)
+    for k in ("loss_idis", "loss_vdis", "loss_gdis"):
+        if abs(first[k] - 2 * math.log(2)) > 0.2:
+            raise AssertionError(f"{name}: first-step {k} {first[k]} is not within 0.2 of 2 ln 2")
+    check_restore(trainer, state, cfg)
+    trainer.loader.close()
+    return {"cfg": cfg, "trainer": trainer, "state": state, "dequant": dq, "fused": fused,
+            "dequant_err": dequant_err, "fused_err": fused_err}
+
+
+def serve_group_norm_run(run: dict) -> None:
+    """``load_run`` + ``GenerationServer.generate`` of the GroupNorm run: a
+    seeded request twice gives equal bytes, and cgen's unfoldable down path
+    makes no fused launch (counters from 0 just before, read just after)."""
+    from dcvgan_torch.cli.infer import load_run
+    from dcvgan_torch.cli.serve import GenerationServer
+    from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+
+    cfg, gan, trained = load_run(run["trainer"].run_dir, -1)
+    if cfg.trainer.norm != "group" or trained.ema is None:
+        raise AssertionError("the GroupNorm run did not load with its norm and EMA")
+    state = trained.generators().with_ema_params()
+    fused_norm_act_conv.launches = 0
+    # -- main path: counts from 0 ------------------------------------------
+    server = GenerationServer(gan, state, batchsize=64, iters_per_chunk=1, geo_name="depth")
+    _, a = server.generate(128, seed=7)
+    _, b = server.generate(128, seed=7)
+    _, c = server.generate(128, seed=8)
+    server.close()
+    torch.cuda.synchronize()
+    launches = fused_norm_act_conv.launches
+    # -- end of main path ----------------------------------------------------
+    print(f"served the GroupNorm run: {a.shape} uint8 twice with seed 7, equal bytes "
+          f"{np_equal(a, b)}; fused_norm_act_conv launches {launches}", flush=True)
+    if a.shape != (128, 16, 64, 64, 3) or not np_equal(a, b) or np_equal(a, c):
+        raise AssertionError("the GroupNorm run's seeded bytes do not replay, or ignore the seed")
+    if launches != 0:
+        raise AssertionError(f"a GroupNorm cgen launched fused_norm_act_conv {launches} times")
+
+
+def device_batches(dataset, batchsize: int, n: int, seed: int = 1) -> list:
+    """The first ``n`` loader batches of epoch 0, uint8, on the card."""
+    from dcvgan_torch.data.loader import VideoLoader
+
+    with VideoLoader(dataset, batchsize, n_workers=2, seed=seed) as loader:
+        batches = list(loader.epoch_iterator(0))[:n]
+    return [{k: torch.from_numpy(np.asarray(v)).cuda() for k, v in b.items()} for b in batches]
+
+
+def step_state(gan, batches, key: int, steps: int = 1):
+    """A fresh state from the config's seed after ``steps`` steps of
+    ``batches`` under ``key``; the last step's metrics."""
+    from dcvgan_torch import prng
+
+    state = gan.init_state(gan.config.seed)
+    for i in range(steps):
+        state, m = gan.train_step(state, batches[i % len(batches)],
+                                  prng.base_key(key, gan.device))
+    return state, m
+
+
+def generator_grads(state) -> dict:
+    """The generators' gradients as they stand after a step, flat f32."""
+    return {name: torch.cat([p.grad.float().flatten() for p in getattr(state, name).parameters()])
+            for name in ("ggen", "cgen")}
+
+
+def rel_l2(a: dict, b: dict) -> dict:
+    return {k: ((a[k] - b[k]).norm() / b[k].norm()).item() for k in b}
+
+
+def remat_equivalence(root: Path) -> dict:
+    """``remat`` on against off, f32 (TF32 off) at ngf 32, one step from one
+    state and the same draws, under the plain step and under the fast-path
+    trio: losses, running statistics and the generators' gradients within
+    the stated tolerances, and a control step with other G-phase dropout
+    masks outside them."""
+    from dcvgan_torch import prng
+    from dcvgan_torch.cli.train import build_dataset
+    from dcvgan_torch.train.step import DCVGAN, StepDraws
+
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for label, fast in (("plain", False), ("trio", True)):
+        cfg = lever_config("demo-synthetic-fastpath", root)
+        cfg.trainer.precision = "float32"
+        cfg.trainer.shared_fakes = cfg.trainer.critic_joint_batch = fast
+        cfg.trainer.critic_stat_reuse = fast
+        batch = device_batches(build_dataset(cfg), cfg.batchsize, 1)[0]
+        g = torch.Generator().manual_seed(4)
+        cpu, n_frames = torch.device("cpu"), cfg.batchsize * cfg.video_length
+        probe = DCVGAN(cfg, "cpu")
+        cgen = probe.init_state(cfg.seed).cgen
+        draws = StepDraws(
+            t_rand=5,
+            d_latents=probe.sample_latents(g, cfg.batchsize),
+            g_latents=probe.sample_latents(g, cfg.batchsize),
+            d_dropout=cgen.dropout_masks(n_frames, g, cpu),
+            g_dropout=cgen.dropout_masks(n_frames, g, cpu),
+        )
+        other = dataclasses.replace(draws, g_dropout=cgen.dropout_masks(n_frames, g, cpu))
+        runs = {}
+        for run, remat, run_draws in (("off", False, draws), ("on", True, draws),
+                                      ("off again", False, draws), ("other masks", True, other)):
+            cfg.trainer.remat = remat
+            gan = DCVGAN(cfg)
+            torch.cuda.reset_peak_memory_stats()
+            state, m = gan.train_step(gan.init_state(cfg.seed), batch, prng.base_key(5, gan.device),
+                                      run_draws)
+            runs[run] = (state, m, generator_grads(state), torch.cuda.max_memory_allocated() / 1e9)
+        (a, ma, ga, peak_a), (b, mb, gb, peak_b) = runs["off"], runs["on"]
+        loss = max(abs(ma[k].item() - mb[k].item()) for k in ma)
+        stats = max((x.float() - y.float()).abs().max().item()
+                    for name in a.models
+                    for x, y in zip(a.models[name].buffers(), b.models[name].buffers())
+                    if x.is_floating_point())
+        grad = rel_l2(gb, ga)
+        floor = rel_l2(runs["off again"][2], ga)
+        control = rel_l2(runs["other masks"][2], ga)
+        print(f"remat on vs off ({label}, f32, ngf {cfg.ggen.ngf}, batch {cfg.batchsize}, one step, "
+              f"deterministic cuDNN): max |loss diff| {loss:.3e} (tol {REMAT_LOSS_ATOL:g}), running "
+              f"statistics {stats:.3e} (tol {REMAT_STATS_ATOL:g}), generator gradients' relative L2 "
+              f"{json.dumps(grad)} (tol {REMAT_GRAD_L2:g}); remat off twice {json.dumps(floor)}; "
+              f"other G-phase masks {json.dumps(control)} (must exceed {REMAT_CONTROL_L2:g}); peak "
+              f"device memory {peak_a:.3f} GB off, {peak_b:.3f} GB on", flush=True)
+        if loss > REMAT_LOSS_ATOL or stats > REMAT_STATS_ATOL or max(grad.values()) > REMAT_GRAD_L2:
+            raise AssertionError(f"remat on and off disagree ({label})")
+        if min(control.values()) <= REMAT_CONTROL_L2:
+            raise AssertionError(f"other dropout masks left the generator gradients in tolerance ({label})")
+        out[label] = {"loss": loss, "stats": stats, "grad_rel_l2": grad, "floor_rel_l2": floor,
+                      "control_rel_l2": control}
+    torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
+def stat_reuse_step(root: Path, precision: str) -> dict:
+    """One ``critic_stat_reuse`` step on the card and on the CPU (plain
+    versions) from one state and the same draws, in ``precision``: the
+    generator phase's backward runs through the critics' eval-mode
+    BatchNorm3d. ngf 32, batch 4 (the CPU's time), critic noise off so that
+    every draw is an explicit input. Returns the losses' largest difference
+    and the generators' gradients' relative L2 distance."""
+    from dcvgan_torch import prng
+    from dcvgan_torch.cli.train import build_dataset
+    from dcvgan_torch.data.loader import VideoLoader
+    from dcvgan_torch.train.step import DCVGAN, StepDraws
+
+    cfg = lever_config("demo-synthetic-fastpath", root)
+    cfg.batchsize = 4
+    cfg.trainer.precision = precision
+    cfg.trainer.shared_fakes = cfg.trainer.critic_joint_batch = False
+    for name in ("idis", "vdis", "gdis"):
+        getattr(cfg, name).use_noise = False
+    with VideoLoader(build_dataset(cfg), cfg.batchsize, n_workers=2, seed=1) as loader:
+        batch = next(loader.epoch_iterator(0))
+    batch = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+    gans = {device: DCVGAN(cfg, device) for device in ("cuda", "cpu")}
+    states = {device: gan.init_state(cfg.seed) for device, gan in gans.items()}
+    g = torch.Generator().manual_seed(6)
+    n_frames = cfg.batchsize * cfg.video_length
+    cpu = torch.device("cpu")
+    draws = StepDraws(
+        t_rand=5,
+        d_latents=gans["cpu"].sample_latents(g, cfg.batchsize),
+        g_latents=gans["cpu"].sample_latents(g, cfg.batchsize),
+        d_dropout=states["cpu"].cgen.dropout_masks(n_frames, g, cpu),
+        g_dropout=states["cpu"].cgen.dropout_masks(n_frames, g, cpu),
+    )
+    results = {}
+    for device, gan in gans.items():
+        state = states[device]
+        on_device = {k: v.to(gan.device) for k, v in batch.items()}
+        state, m = gan.train_step(state, on_device, prng.base_key(5, gan.device), draws)
+        grads = {name: torch.cat([p.grad.float().flatten().cpu()
+                                  for p in getattr(state, name).parameters()])
+                 for name in ("ggen", "cgen")}
+        results[device] = ({k: v.item() for k, v in m.items()}, grads)
+    (mc, gc), (mh, gh) = results["cuda"], results["cpu"]
+    loss = max(abs(mc[k] - mh[k]) for k in mc)
+    rel = {name: ((gc[name] - gh[name]).norm() / gh[name].norm()).item() for name in gc}
+    print(f"critic_stat_reuse {precision} step, card against CPU (ngf {cfg.ggen.ngf}, batch "
+          f"{cfg.batchsize}): losses card {json.dumps(mc)} CPU {json.dumps(mh)}; max |diff| "
+          f"{loss:.3e}; generator gradients' relative L2 "
+          f"{json.dumps({k: round(v, 6) for k, v in rel.items()})}", flush=True)
+    if not all(math.isfinite(v) for v in mc.values()):
+        raise AssertionError(f"the critic_stat_reuse {precision} step's losses are not finite")
+    return {"loss": loss, "grad_rel_l2": rel}
+
+
+def eval_batch_norm_backward() -> dict:
+    """One eval-mode ``BatchNorm3d`` (bf16 activations, f32 parameters and
+    running statistics, channels-last) forward and backward on the card
+    against the CPU, on the same values."""
+    from dcvgan_torch.models.layers import batch_norm3d
+
+    g = torch.Generator().manual_seed(8)
+    bn = batch_norm3d(64)
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=g)
+        bn.bias.normal_(0.0, 0.1, generator=g)
+        bn.running_mean.normal_(0.0, 0.5, generator=g)
+        bn.running_var.uniform_(0.5, 2.0, generator=g)
+    x = torch.randn(8, 64, 7, 16, 16, generator=g).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last_3d)
+    dy = torch.randn(x.shape, generator=g).to(torch.bfloat16)
+    out = {}
+    for device in ("cuda", "cpu"):
+        layer = copy.deepcopy(bn).to(device)
+        xd = x.to(device, copy=True).requires_grad_()
+        y = layer(xd, False, False)
+        y.backward(dy.to(device).contiguous(memory_format=torch.channels_last_3d))
+        out[device] = [t.detach().float().cpu() for t in (y, xd.grad, layer.weight.grad, layer.bias.grad)]
+    errs = {}
+    for name, a, b, rtol in zip(("y", "dx", "dweight", "dbias"), out["cuda"], out["cpu"],
+                                (BN_BF16_RTOL, BN_BF16_RTOL, BN_PARAM_GRAD_RTOL, BN_PARAM_GRAD_RTOL)):
+        d = (a - b).abs()
+        scale = b.abs() if name in ("y", "dx") else b.abs().max()
+        # the largest difference as a share of its tolerance (<= 1 passes)
+        errs[name] = (d / (rtol * scale + 1e-6)).max().item()
+        if errs[name] > 1:
+            raise AssertionError(f"eval-mode BatchNorm3d {name}: card and CPU differ by {d.max().item():.3e}")
+    print("eval-mode BatchNorm3d, bf16 activations, f32 parameters, card against CPU: largest "
+          f"difference as a share of its tolerance {json.dumps({k: round(v, 4) for k, v in errs.items()})}"
+          f" (tol {BN_BF16_RTOL:g} relative + 1e-6 for y and dx, {BN_PARAM_GRAD_RTOL:g} of the largest "
+          "for the parameters' gradients)", flush=True)
+    return errs
+
+
+def stat_reuse_against_cpu(root: Path) -> dict:
+    """``critic_stat_reuse`` on the card against the CPU: the layer, then a
+    whole step in f32 (gradients held) and in bf16 (losses held)."""
+    layer = eval_batch_norm_backward()
+    f32 = stat_reuse_step(root, "float32")
+    bf16 = stat_reuse_step(root, "bfloat16")
+    if f32["loss"] > REUSE_F32_LOSS_ATOL or max(f32["grad_rel_l2"].values()) > REUSE_F32_GRAD_L2:
+        raise AssertionError("the f32 critic_stat_reuse step on the card disagrees with the CPU's")
+    if bf16["loss"] > REUSE_BF16_LOSS_ATOL:
+        raise AssertionError("the bf16 critic_stat_reuse step's losses disagree with the CPU's")
+    print(f"critic_stat_reuse held: f32 losses within {REUSE_F32_LOSS_ATOL:g} and gradients within "
+          f"{REUSE_F32_GRAD_L2:g} relative L2; bf16 losses within {REUSE_BF16_LOSS_ATOL:g}", flush=True)
+    return {"layer": layer, "f32": f32, "bf16": bf16}
+
+
+def adam_keeps_the_gradient() -> None:
+    """``ggen_double_step`` steps ggen's Adam twice on one gradient: torch's
+    foreach Adam (the card's default) must add the weight decay to a copy."""
+    from dcvgan_torch.config import OptimizerConfig
+    from dcvgan_torch.train.step import make_optimizer
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    params = [torch.nn.Parameter(torch.randn(64, 32, 4, 4, device="cuda", generator=g))
+              for _ in range(3)]
+    opt = make_optimizer(OptimizerConfig(decay=0.5), params)
+    grads = [torch.randn(p.shape, device="cuda", generator=g) for p in params]
+    for p, gr in zip(params, grads):
+        p.grad = gr.clone()
+    for _ in range(2):
+        opt.step()
+    if not all(torch.equal(p.grad, gr) for p, gr in zip(params, grads)):
+        raise AssertionError("torch's Adam changed .grad in place: a second step sees another gradient")
+    print("Adam (foreach, weight decay 0.5) left .grad as it was over two steps", flush=True)
+
+
+def time_lever_settings(run: dict, card: str) -> dict:
+    """The flagship (``configs/mug-depth.yml``: batch 20, ngf 64, bf16) with
+    each lever setting against levers off, in turns (off, on, on, off): train
+    it/s over 42 steps after 2 untimed ones, and peak device memory; then
+    remat's peak memory against none, and a profile of one step under the
+    trio and under GroupNorm. Numbers only: no limit."""
+    from dcvgan_torch import prng
+    from dcvgan_torch.ops.dequant import dequantize_video
+    from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+    from dcvgan_torch.train.step import DCVGAN
+
+    base = train_config(Path(run["tmp"].name))
+    batches = device_batches(run["dataset"], base.batchsize, 3)
+
+    def one(levers: dict) -> tuple:
+        cfg = train_config(Path(run["tmp"].name))
+        for k, v in levers.items():
+            setattr(cfg.trainer, k, v)
+        gan = DCVGAN(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = step_state(gan, batches, key=9, steps=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(LEVER_TIMED_STEPS):
+            state, m = gan.train_step(state, batches[i % len(batches)], prng.base_key(9, "cuda"))
+        torch.cuda.synchronize()
+        its = LEVER_TIMED_STEPS / (time.perf_counter() - t0)
+        if not all(math.isfinite(v.item()) for v in m.values()):
+            raise AssertionError(f"levers {levers}: non-finite losses")
+        del state
+        return its, torch.cuda.max_memory_allocated() / 1e9
+
+    report = {}
+    for label, levers in LEVER_SETTINGS.items():
+        turns = [one({} if i in (0, 3) else levers) for i in range(4)]
+        report[label] = {"off_its": [turns[0][0], turns[3][0]], "on_its": [turns[1][0], turns[2][0]],
+                         "off_peak_gb": turns[0][1], "on_peak_gb": turns[1][1]}
+        print(f"levers {label} at batch {base.batchsize} on {card}: train it/s off "
+              f"{turns[0][0]:.3f}, on {turns[1][0]:.3f}, on {turns[2][0]:.3f}, off {turns[3][0]:.3f}; "
+              f"peak device memory off {turns[0][1]:.3f} GB, on {turns[1][1]:.3f} GB", flush=True)
+    remat = {r: one({"remat": r})[1] for r in (False, True)}
+    report["remat_peak_gb"] = remat
+    print(f"remat at batch {base.batchsize}: peak device memory {remat[False]:.3f} GB without, "
+          f"{remat[True]:.3f} GB with", flush=True)
+    print("levers " + json.dumps(report), flush=True)
+    # where a step's time goes under the trio and under GroupNorm
+    for label in ("trio", "norm_group"):
+        cfg = train_config(Path(run["tmp"].name))
+        for k, v in LEVER_SETTINGS[label].items():
+            setattr(cfg.trainer, k, v)
+        gan = DCVGAN(cfg)
+        state, _ = step_state(gan, batches, key=9, steps=1)
+        profile_once(lambda: gan.train_step(state, batches[0], prng.base_key(9, "cuda")),
+                     f"train profile {label}", {"batch": cfg.batchsize},
+                     {"dequantize_video": dequantize_video, "fused_norm_act_conv": fused_norm_act_conv})
+    return report
+
+
+def phase_levers(run: dict, card: str) -> dict:
+    """The train step's opt-in levers and ``trainer.norm: group``: the four
+    repo configs that set them trained as they stand, the GroupNorm run
+    served, remat and critic_stat_reuse held to their equivalents, and the
+    flagship's numbers under each setting."""
+    root = Path(run["tmp"].name)
+    runs = {name: train_lever_config(name, root) for name in LEVER_CONFIGS}
+    quirks = runs["demo-synthetic-quirks"]["state"]
+    counts = {name: {float(s["step"]) for s in quirks.opt[name].state.values()} for name in quirks.models}
+    print(f"quirks run's Adam counts after {LEVER_STEPS} steps: "
+          + json.dumps({k: sorted(v) for k, v in counts.items()}), flush=True)
+    if counts["ggen"] != {2.0 * LEVER_STEPS} or counts["cgen"] != {float(LEVER_STEPS)} \
+            or counts["idis"] != {LEVER_STEPS / 2}:
+        raise AssertionError("the quirks run did not step ggen twice a step and the critics every second")
+    adam_keeps_the_gradient()
+    serve_group_norm_run(runs["headtohead-tpu-seed0-10k-stable-gn"])
+    remat = remat_equivalence(root)
+    reuse = stat_reuse_against_cpu(root)
+    numbers = time_lever_settings(run, card)
+    torch.cuda.empty_cache()
+    return {"dequant_launches": sum(r["dequant"] for r in runs.values()),
+            "fused_launches": sum(r["fused"] for r in runs.values()),
+            "dequant_err": max(r["dequant_err"] for r in runs.values()),
+            "fused_err": max(r["fused_err"] for r in runs.values()),
+            "remat": remat, "reuse": reuse, "numbers": numbers}
+
+
 EVAL_WEIGHTS = "assets/extractor-synthetic-v2.npz"
 # device-resident against host scoring: the same quantisation and the same
 # extractor batches, so the same scores up to the order of float sums;
@@ -882,7 +1425,7 @@ def phase_eval(run: dict) -> dict:
     print(f"eval extractor: {evaluator.extractor.fingerprint} ({EVAL_WEIGHTS}; float32 convolutions "
           "with TF32 off)", flush=True)
     rounds = -(-ev.num_samples // ev.batchsize)
-    fused_err = check_sites(ev.batchsize * cfg.video_length, "eval")
+    fused_err = check_sites(ev.batchsize * cfg.video_length, "eval", cgen_sites(cfg))
 
     torch.cuda.reset_peak_memory_stats()
     fused_norm_act_conv.launches = 0
@@ -944,7 +1487,8 @@ def phase_infer(run: dict, fingerprint: str) -> dict:
     run_dir = run["trainer"].run_dir
     save = Path(run["tmp"].name) / "generated"
     n, b = 40, 20
-    fused_err = check_sites(b * run["trainer"].config.video_length, "infer")
+    fused_err = check_sites(b * run["trainer"].config.video_length, "infer",
+                            cgen_sites(run["trainer"].config))
     fused_norm_act_conv.launches = 0
     # -- main path: counts from 0 ------------------------------------------
     t0 = time.perf_counter()
@@ -1201,7 +1745,7 @@ def phase_http(run: dict, card: str) -> dict:
     cfg, gan, trained = load_run(run_dir, -1)
     state = trained.generators().with_ema_params()
     out = Path(run["tmp"].name) / "served"
-    fused_err = check_sites(HTTP_SHAPES[0][0] * cfg.video_length, "http")
+    fused_err = check_sites(HTTP_SHAPES[0][0] * cfg.video_length, "http", cgen_sites(cfg))
     fused_norm_act_conv.launches = 0
     dequantize_video.launches = 0
     # -- main path: counts from 0 ------------------------------------------
@@ -1270,7 +1814,12 @@ def main() -> int:
     dequant_entry = phase_dequant()
     entry["launches"] = phase_slice(card)
     run = phase_train(card)
+    levers = phase_levers(run, card)
     dequant_entry["launches"] = run["launches"]
+    # each kernel's launches on the lever paths, counted from 0 per config
+    dequant_entry["lever_launches"] = levers["dequant_launches"]
+    entry["lever_launches"] = levers["fused_launches"]
+    dequant_entry["max_abs_err"] = max(dequant_entry["max_abs_err"], levers["dequant_err"])
     if run["device_ms"] is not None:
         # the kernel's time on the main path: the step's one launch in the
         # train-step profile (else the isolated time of phase 3 stays)
@@ -1284,8 +1833,8 @@ def main() -> int:
     entry["infer_launches"] = inference["fused_launches"]
     entry["http_launches"] = served["fused_launches"]
     # and its comparisons at each path's frame count
-    entry["max_abs_err"] = max(entry["max_abs_err"], run["fused_err"], evaluation["fused_err"],
-                               inference["fused_err"], served["fused_err"])
+    entry["max_abs_err"] = max(entry["max_abs_err"], run["fused_err"], levers["fused_err"],
+                               evaluation["fused_err"], inference["fused_err"], served["fused_err"])
 
     print(json.dumps({"kernels": [entry, dequant_entry]}))
     print(card_line())

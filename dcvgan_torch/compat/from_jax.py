@@ -9,6 +9,8 @@ whose names are the reference torch modules':
 - ConvTranspose with ``transpose_kernel=True`` ``(kH, kW, O, I)`` ->
   ``(I, O, kH, kW)``;
 - BatchNorm ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``;
+  a GroupNorm (``trainer.norm: group``) has no ``batch_stats`` entry and
+  gives ``weight/bias`` only;
 - GRU cell: flax's ``ir/iz`` biases already hold ``b_ir + b_hr``, so they go
   to ``bias_ih`` with ``bias_hh``'s r and z parts 0; ``in.bias`` goes to
   ``bias_ih``'s n part and ``hn.bias`` to ``bias_hh``'s n part.
@@ -52,9 +54,12 @@ def conv3d_weight(k) -> torch.Tensor:
     return _t(np.asarray(k).transpose(4, 3, 0, 1, 2))
 
 
-def _bn(sd: StateDict, prefix: str, params: Tree, stats: Tree) -> None:
+def _bn(sd: StateDict, prefix: str, params: Tree, stats: Optional[Tree]) -> None:
+    """A norm layer's entries; ``stats`` is None for a GroupNorm."""
     sd[f"{prefix}.weight"] = _t(params["scale"])
     sd[f"{prefix}.bias"] = _t(params["bias"])
+    if stats is None:
+        return
     sd[f"{prefix}.running_mean"] = _t(stats["mean"])
     sd[f"{prefix}.running_var"] = _t(stats["var"])
     sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
@@ -88,7 +93,7 @@ def ggen_from_jax(params: Tree, batch_stats: Tree) -> StateDict:
         n_up += 1
     for i in range(n_up):
         sd[f"main.{3 * i}.weight"] = conv_weight(params[f"ups_{i}"]["kernel"])
-        _bn(sd, f"main.{3 * i + 1}", params[f"bns_{i}"], batch_stats[f"bns_{i}"])
+        _bn(sd, f"main.{3 * i + 1}", params[f"bns_{i}"], batch_stats.get(f"bns_{i}"))
     sd[f"main.{3 * n_up}.weight"] = conv_weight(params[f"ups_{n_up}"]["kernel"])
     return sd
 
@@ -99,12 +104,12 @@ def cgen_from_jax(params: Tree, batch_stats: Tree) -> StateDict:
     i = 0
     while f"down{i}_conv" in params:
         sd[f"down_blocks.{i}.main.0.weight"] = conv_weight(params[f"down{i}_conv"]["kernel"])
-        _bn(sd, f"down_blocks.{i}.main.1", params[f"down{i}_bn"], batch_stats[f"down{i}_bn"])
+        _bn(sd, f"down_blocks.{i}.main.1", params[f"down{i}_bn"], batch_stats.get(f"down{i}_bn"))
         i += 1
     i = 0
     while f"up{i}_conv" in params:
         sd[f"up_blocks.{i}.main.0.weight"] = conv_weight(params[f"up{i}_conv"]["kernel"])
-        _bn(sd, f"up_blocks.{i}.main.1", params[f"up{i}_bn"], batch_stats[f"up{i}_bn"])
+        _bn(sd, f"up_blocks.{i}.main.1", params[f"up{i}_bn"], batch_stats.get(f"up{i}_bn"))
         i += 1
     sd["outconv.main.0.weight"] = conv_weight(params["outconv"]["kernel"])
     return sd
@@ -116,7 +121,7 @@ def _critic_from_jax(
 ) -> StateDict:
     sd = {f"{theirs}.weight": weight(params[ours]["kernel"]) for ours, theirs in convs.items()}
     for ours, theirs in bns.items():
-        _bn(sd, theirs, params[ours], batch_stats[ours])
+        _bn(sd, theirs, params[ours], batch_stats.get(ours))
     return sd
 
 

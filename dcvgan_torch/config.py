@@ -9,9 +9,10 @@ GPU (``trainer.profile``, ``debug_nans``, ``donate_state``) are accepted and
 dropped; any other unknown key raises, as the JAX loader raises.
 
 The opt-in levers (``shared_fakes``, ``critic_joint_batch``,
-``critic_stat_reuse``, ``remat``, ``ggen_double_step``, ``norm: group``,
-``sync_batchnorm: false``, a mesh beyond one device) load here; the train
-step raises ``NotImplementedError`` naming the key when one is switched on.
+``critic_stat_reuse``, ``remat``, ``ggen_double_step``, ``norm: group``)
+load here and run in the train step. The multi-device layouts
+(``sync_batchnorm: false``, a mesh beyond one device) load too; the train
+step raises ``NotImplementedError`` naming the key when one is set.
 """
 
 from __future__ import annotations

@@ -19,9 +19,18 @@ Train mode (``train=True``) uses batch statistics, which depend on the conv
 output, so the down path runs unfused, as in the JAX package, whose kernel
 has no backward. The first two up blocks drop whole channels per frame with
 probability 0.5 between BatchNorm and ReLU (one draw per (frame, channel),
-kept values doubled); the keep masks are an explicit input or come from a
-generator. ``update_stats`` says whether the forward moves the running
-BatchNorm statistics.
+kept values doubled); the keep masks are an input that a train-mode
+forward requires, drawn by the caller before the forward
+(:meth:`dropout_masks`), so that a recomputed forward uses the same masks.
+``update_stats`` says whether the forward moves the running BatchNorm
+statistics.
+
+``norm="group"`` (``trainer.norm``) puts a :class:`ChannelGroupNorm` in
+each BatchNorm's slot. A GroupNorm normalises each frame by its own
+statistics, so it does not fold into the per-channel affine the fused
+kernel applies: under ``norm="group"`` the eval-mode down path runs
+unfused too, as the JAX package runs it on every path, and makes no
+``fused_norm_act_conv`` launch.
 
 The state-dict naming is the reference's: ``inconv.main.0``,
 ``down_blocks.{i}.main.{0,1}``, ``up_blocks.{i}.main.{0,1}``,
@@ -40,11 +49,11 @@ import torch.nn.functional as F
 from dcvgan_torch.models.layers import (
     Conv2d,
     ConvTranspose2d,
-    batch_norm,
     fold_batch_norm,
     fold_time,
     init_weights_,
     leaky_relu,
+    norm_layer,
     same_pad_conv,
     unfold_time,
     up_conv,
@@ -69,9 +78,11 @@ class ColorVideoGenerator(nn.Module):
         ngf: int = 64,
         video_length: int = 16,
         image_size: int = 64,
+        norm: str = "batch",
     ):
         super().__init__()
         self.in_ch = in_ch
+        self.norm = norm
         self.dim_z = dim_z
         self.geometric_info = geometric_info
         self.video_length = video_length
@@ -87,7 +98,7 @@ class ColorVideoGenerator(nn.Module):
         for mult in down_mults:
             cout = ngf * mult
             downs.append(
-                _Block(same_pad_conv(cin, cout), batch_norm(cout), nn.LeakyReLU(0.2))
+                _Block(same_pad_conv(cin, cout), norm_layer(norm, cout), nn.LeakyReLU(0.2))
             )
             cin = cout
         self.down_blocks = nn.ModuleList(downs)
@@ -99,7 +110,7 @@ class ColorVideoGenerator(nn.Module):
             cout = ngf * mult
             # the channel dropout of the first two blocks has no parameters;
             # its slot keeps the reference's indices within the block
-            layers = [up_conv(cin, cout), batch_norm(cout)]
+            layers = [up_conv(cin, cout), norm_layer(norm, cout)]
             if i < 2:
                 layers.append(nn.Identity())
             layers.append(nn.ReLU())
@@ -118,6 +129,17 @@ class ColorVideoGenerator(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         init_weights_(self, generator)
 
+    def dropout_masks(
+        self, n: int, generator: torch.Generator, device: torch.device
+    ) -> List[torch.Tensor]:
+        """The keep masks of up blocks 0 and 1 for ``n`` frames, boolean
+        ``(n, C)`` on ``device``, drawn from ``generator`` in that order."""
+        return [
+            torch.rand((n, self.up_blocks[i].main[0].out_channels),
+                       generator=generator, device=device) >= 0.5
+            for i in range(2)
+        ]
+
     def forward(
         self,
         x: torch.Tensor,
@@ -125,14 +147,15 @@ class ColorVideoGenerator(nn.Module):
         train: bool = False,
         update_stats: bool = True,
         dropout_masks: Optional[Sequence[torch.Tensor]] = None,
-        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Geometry frames ``(N, in_ch, H, W)`` and latents ``(N, dim_z)`` to
         RGB frames ``(N, 3, H, W)``, channels-last.
 
-        In train mode ``dropout_masks`` are the keep masks of up blocks 0 and
-        1, boolean ``(N, C)``; without them they are drawn from ``generator``.
+        In train mode ``dropout_masks`` (required) are the keep masks of up
+        blocks 0 and 1, boolean ``(N, C)``.
         """
+        if train and dropout_masks is None:
+            raise ValueError("a train-mode forward takes its dropout masks (dropout_masks())")
         dtype = self.compute_dtype
         x = x.to(dtype).contiguous(memory_format=torch.channels_last)
         if self.geometric_info == "segmentation":
@@ -142,10 +165,10 @@ class ColorVideoGenerator(nn.Module):
             x = x.permute(0, 3, 1, 2)  # NHWC memory: a channels-last view
 
         hs = [self.inconv.main(x)]
-        if train:
+        if train or self.norm == "group":
             h = hs[0]
             for blk in self.down_blocks:
-                h = leaky_relu(blk.main[1](blk.main[0](h), True, update_stats), 0.2)
+                h = leaky_relu(blk.main[1](blk.main[0](h), train, update_stats), 0.2)
                 hs.append(h)
         else:
             h = self._down_fused(hs)
@@ -157,10 +180,7 @@ class ColorVideoGenerator(nn.Module):
                 h = torch.cat([h, hs[n - i]], dim=1)
             h = blk.main[1](blk.main[0](h), train, update_stats)
             if train and i < 2:
-                if dropout_masks is not None:
-                    keep = dropout_masks[i].to(h.device)
-                else:
-                    keep = torch.rand(h.shape[:2], generator=generator, device=h.device) >= 0.5
+                keep = dropout_masks[i].to(h.device)
                 h = h * (keep.to(dtype) * 2.0)[:, :, None, None]
             h = F.relu(h)
         return self.outconv.main(torch.cat([h, hs[0]], dim=1))
@@ -189,12 +209,11 @@ class ColorVideoGenerator(nn.Module):
         train: bool = False,
         update_stats: bool = True,
         dropout_masks: Optional[Sequence[torch.Tensor]] = None,
-        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Colourise geometry videos ``(B, T, H, W, in_ch)`` with one latent
         per video ``(B, dim_z)``, repeated over T, to ``(B, T, H, W, 3)``."""
         b, t = xs.shape[:2]
         z = z[:, None, :].expand(b, t, z.shape[-1]).reshape(b * t, -1)
         frames = fold_time(xs).permute(0, 3, 1, 2)
-        ys = self(frames, z, train, update_stats, dropout_masks, generator)
+        ys = self(frames, z, train, update_stats, dropout_masks)
         return unfold_time(ys.permute(0, 2, 3, 1), b)

@@ -20,7 +20,9 @@ time-sharded branches are not ported). All three are pair critics over
 is a static flag applied in both modes. ``noise`` maps a Noise layer's name
 (``noise_g``, ``noise_c``, ``noise_1``, ...) to its unit-normal draw in the
 input layout (channels last); a layer without an entry draws from
-``generator``.
+``generator``. ``norm="group"`` (``trainer.norm``) puts a
+:class:`ChannelGroupNorm` in each BatchNorm's slot (scale N(1, 0.02) in the
+image critic, 1 in the video critics, as their BatchNorms).
 
 State-dict names are the reference modules': stems ``conv_g`` / ``conv_c``
 with the conv at index 1 (idis, after its Noise) or 0 (vdis); ``main`` with
@@ -36,9 +38,9 @@ import torch.nn as nn
 
 from dcvgan_torch.models.layers import (
     Noise,
-    batch_norm,
-    batch_norm3d,
+    Norm,
     init_weights_,
+    norm_layer,
     same_pad_conv,
     time_valid_conv3d,
 )
@@ -54,19 +56,19 @@ def _to_channels_first(x: torch.Tensor) -> torch.Tensor:
 class _Critic(nn.Module):
     ndim = 2  # spatial dims of the convs: 2 (frames) or 3 (videos)
 
-    def __init__(self, use_noise: bool, noise_sigma: float):
+    def __init__(self, use_noise: bool, noise_sigma: float, norm: str):
         super().__init__()
         self.use_noise = use_noise
         self.noise_sigma = noise_sigma
+        self.norm = norm
         self.compute_dtype = torch.float32
 
     def _stage(self, cin: int, cout: int, norm: bool) -> list:
-        """[Noise, conv (, BatchNorm, LeakyReLU)]: four slots of ``main``."""
+        """[Noise, conv (, norm, LeakyReLU)]: four slots of ``main``."""
         conv = same_pad_conv if self.ndim == 2 else time_valid_conv3d
-        bn = batch_norm if self.ndim == 2 else batch_norm3d
         layers = [Noise(self.use_noise, self.noise_sigma), conv(cin, cout)]
         if norm:
-            layers += [bn(cout), nn.LeakyReLU(0.2)]
+            layers += [norm_layer(self.norm, cout, self.ndim), nn.LeakyReLU(0.2)]
         return layers
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -79,7 +81,7 @@ class _Critic(nn.Module):
             if isinstance(layer, Noise):
                 draw = noise.get(f"noise_{i // 4 + 1}")
                 h = layer(h, None if draw is None else _to_channels_first(draw), generator)
-            elif isinstance(layer, (nn.BatchNorm2d, nn.BatchNorm3d)):
+            elif isinstance(layer, Norm):
                 h = layer(h, train, update_stats)
             else:
                 h = layer(h)
@@ -91,8 +93,8 @@ class _PairCritic(_Critic):
 
     stem_noise = True
 
-    def __init__(self, ch_g=1, ch_c=3, use_noise=False, noise_sigma=0.0, ndf=64):
-        super().__init__(use_noise, noise_sigma)
+    def __init__(self, ch_g=1, ch_c=3, use_noise=False, noise_sigma=0.0, ndf=64, norm="batch"):
+        super().__init__(use_noise, noise_sigma, norm)
         conv = same_pad_conv if self.ndim == 2 else time_valid_conv3d
 
         def stem(cin):
@@ -152,8 +154,8 @@ class GradientDiscriminator(_Critic):
 
     ndim = 3
 
-    def __init__(self, ch_g=1, ch_c=3, use_noise=False, noise_sigma=0.0, ndf=64):
-        super().__init__(use_noise, noise_sigma)
+    def __init__(self, ch_g=1, ch_c=3, use_noise=False, noise_sigma=0.0, ndf=64, norm="batch"):
+        super().__init__(use_noise, noise_sigma, norm)
         del ch_c
         self.main = nn.Sequential(
             *self._stage(ch_g, ndf, True),

@@ -10,7 +10,8 @@ channels for segmentation.
 
 ``train`` selects batch statistics in the decoder's BatchNorms and
 ``update_stats`` whether that forward moves their running statistics
-(``models/layers.py``).
+(``models/layers.py``). ``norm="group"`` (``trainer.norm``) puts a
+:class:`ChannelGroupNorm` in each BatchNorm's slot; it ignores both.
 
 The state-dict naming is the reference's: ``recurrent.*`` (an
 ``nn.GRUCell``'s four tensors) and ``main.{3i}`` / ``main.{3i+1}`` for the
@@ -25,11 +26,11 @@ import torch
 import torch.nn as nn
 
 from dcvgan_torch.models.layers import (
-    BatchNorm2d,
     ConvTranspose2d,
-    batch_norm,
+    Norm,
     fold_time,
     init_weights_,
+    norm_layer,
     uniform_symmetric_init_,
     unfold_time,
     up_conv,
@@ -131,6 +132,7 @@ class GeometricVideoGenerator(nn.Module):
         ngf: int = 64,
         video_length: int = 16,
         image_size: int = 64,
+        norm: str = "batch",
     ):
         super().__init__()
         self.dim_z_content = dim_z_content
@@ -147,13 +149,13 @@ class GeometricVideoGenerator(nn.Module):
         # stage per doubling with channel multipliers min(8, 2^k) down to 1
         layers = [
             ConvTranspose2d(self.dim_z, ngf * 8, 4, 1, 0, bias=False),
-            batch_norm(ngf * 8),
+            norm_layer(norm, ngf * 8),
             nn.ReLU(),
         ]
         cin = ngf * 8
         for i in range(n_up - 1):
             cout = ngf * min(8, 2 ** (n_up - 2 - i))
-            layers += [up_conv(cin, cout), batch_norm(cout), nn.ReLU()]
+            layers += [up_conv(cin, cout), norm_layer(norm, cout), nn.ReLU()]
             cin = cout
         head = nn.Softmax(dim=1) if geometric_info == "segmentation" else nn.Tanh()
         layers += [up_conv(cin, channel), head]
@@ -197,7 +199,7 @@ class GeometricVideoGenerator(nn.Module):
         x = z.to(self.compute_dtype).reshape(z.shape[0], -1, 1, 1)
         x = x.contiguous(memory_format=torch.channels_last)
         for layer in self.main:
-            if isinstance(layer, BatchNorm2d):
+            if isinstance(layer, Norm):
                 x = layer(x, train, update_stats)
             else:
                 x = layer(x)

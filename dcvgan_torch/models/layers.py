@@ -20,6 +20,12 @@ variance and stores that *biased* variance in the running statistics with
 momentum 0.9 (torch's 0.1), where torch would store the unbiased one.
 Whether a train-mode forward writes the running statistics is an explicit
 argument: the train step decides which of its forwards do.
+
+**GroupNorm** (``trainer.norm: group``, :class:`ChannelGroupNorm`) takes
+BatchNorm's place at the same slots. It normalises each sample over groups
+of contiguous channels and has no running statistics, so train and eval
+compute the same thing. Both are :class:`Norm` layers, called as
+``layer(x, train, update_stats)``; :func:`norm_layer` builds either.
 """
 
 from __future__ import annotations
@@ -53,19 +59,22 @@ def uniform_symmetric_init_(
 
 def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
     """Reference init of every 2D conv, transposed conv and BatchNorm2d, and
-    torch's default init of every 3D conv and BatchNorm3d."""
+    torch's default init of every 3D conv and BatchNorm3d. A GroupNorm in a
+    BatchNorm's slot takes that BatchNorm's init."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 conv2d_kernel_init_(m.weight, generator)
-            elif isinstance(m, nn.BatchNorm2d):
+            elif isinstance(m, nn.BatchNorm2d) or (
+                isinstance(m, ChannelGroupNorm) and not m.init_ones
+            ):
                 bn2d_scale_init_(m.weight, generator)
                 m.bias.zero_()
             elif isinstance(m, nn.Conv3d):
                 # kaiming_uniform(a=sqrt(5)) is U(+-1/sqrt(fan_in))
                 fan_in = m.weight[0].numel()
                 uniform_symmetric_init_(m.weight, 1.0 / math.sqrt(fan_in), generator)
-            elif isinstance(m, nn.BatchNorm3d):
+            elif isinstance(m, (nn.BatchNorm3d, ChannelGroupNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
 
@@ -94,7 +103,12 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         )
 
 
-class _FlaxBatchNorm:
+class Norm:
+    """A normalisation layer, called as ``layer(x, train, update_stats)``:
+    :class:`BatchNorm2d`, :class:`BatchNorm3d` or :class:`ChannelGroupNorm`."""
+
+
+class _FlaxBatchNorm(Norm):
     """Forward shared by :class:`BatchNorm2d` and :class:`BatchNorm3d`."""
 
     def forward(
@@ -137,6 +151,59 @@ def batch_norm(num_features: int) -> BatchNorm2d:
 def batch_norm3d(num_features: int) -> BatchNorm3d:
     """BatchNorm over (N, T, H, W) with the reference's eps 1e-5."""
     return BatchNorm3d(num_features, eps=1e-5, momentum=BN_MOMENTUM)
+
+
+GN_MAX_GROUPS = 32
+
+
+class ChannelGroupNorm(Norm, nn.Module):
+    """GroupNorm over contiguous channel groups, per sample, with no state:
+    the JAX package's ``ChannelGroupNorm``.
+
+    The group count is the largest divisor of the channel count that is at
+    most ``GN_MAX_GROUPS``. The mean and the biased variance over a
+    group's channels and every spatial (and temporal) position are taken in
+    float32 whatever the input's dtype, then ``y * weight + bias`` in
+    float32, rounded once to the input's dtype; eps 1e-5. ``train`` and
+    ``update_stats`` are accepted and ignored. ``init_ones`` says which
+    BatchNorm's init it takes (:func:`init_weights_`): scale 1 (3D critics)
+    or N(1, 0.02).
+    """
+
+    def __init__(self, num_channels: int, init_ones: bool = False):
+        super().__init__()
+        groups = min(GN_MAX_GROUPS, num_channels)
+        while num_channels % groups:
+            groups -= 1
+        self.num_groups = groups
+        self.eps = 1e-5
+        self.init_ones = init_ones
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(
+        self, x: torch.Tensor, train: bool = False, update_stats: bool = True
+    ) -> torch.Tensor:
+        del train, update_stats
+        y = F.group_norm(
+            x.float(), self.num_groups, self.weight.float(), self.bias.float(), self.eps
+        ).to(x.dtype)
+        # keep the input's channels-last layout for the conv after
+        fmt = {4: torch.channels_last, 5: torch.channels_last_3d}.get(x.dim())
+        if fmt is not None and x.is_contiguous(memory_format=fmt):
+            y = y.contiguous(memory_format=fmt)
+        return y
+
+
+def norm_layer(kind: str, num_features: int, ndim: int = 2) -> nn.Module:
+    """The normalisation of one BatchNorm slot: ``kind`` is ``trainer.norm``
+    ("batch" or "group"), ``ndim`` the spatial dims of the convs around it
+    (2, or 3 for the video critics, whose norms take torch's init)."""
+    if kind == "group":
+        return ChannelGroupNorm(num_features, init_ones=ndim == 3)
+    if kind != "batch":
+        raise ValueError(f"trainer.norm must be 'batch' or 'group', got {kind!r}")
+    return batch_norm(num_features) if ndim == 2 else batch_norm3d(num_features)
 
 
 def fold_batch_norm(bn: nn.BatchNorm2d) -> tuple[torch.Tensor, torch.Tensor]:
@@ -215,12 +282,12 @@ def cast_for_compute(
 ) -> nn.Module:
     """The serving placement: move ``module`` to ``device`` with its
     parameters cast once to ``dtype``, channels-last, and make ``dtype`` its
-    compute dtype. BatchNorm parameters and running statistics stay float32:
-    the JAX package keeps them in f32 and normalises in f32 whatever the
-    compute dtype."""
+    compute dtype. Norm parameters (and BatchNorm's running statistics) stay
+    float32: the JAX package keeps them in f32 and normalises in f32
+    whatever the compute dtype."""
     module.to(device=device, dtype=dtype)
     for m in module.modules():
-        if isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
+        if isinstance(m, Norm):
             m.float()
     _channels_last_(module)
     module.compute_dtype = dtype

@@ -3,7 +3,8 @@
 Counterpart of ``dcvgan_tpu/train/checkpoint.py`` in torch's own format (the
 JAX package's Orbax layout is not reproduced). One file per step,
 ``<directory>/step_<N>.pt``, holds every model's state dict (parameters and
-BatchNorm statistics), every optimizer's state, the step and the EMA. A
+BatchNorm statistics, which a GroupNorm model does not have), every
+optimizer's state, the step and the EMA. A
 file is written to a temporary name and moved into place with
 ``os.replace``, so a reader sees all of it or none.
 """

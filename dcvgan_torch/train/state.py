@@ -2,7 +2,8 @@
 
 Counterpart of ``dcvgan_tpu/train/state.py``. :class:`GANState` is the
 whole five-model training state: the modules with float32 master parameters
-and their BatchNorm statistics, one Adam optimizer per model, the 1-based
+and their BatchNorm statistics (none under ``trainer.norm: group``), one
+Adam optimizer per model, the 1-based
 global step and, when ``trainer.ema_decay > 0``, an EMA of the generator
 parameters by parameter name. The train step updates it in place.
 

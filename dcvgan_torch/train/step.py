@@ -24,6 +24,34 @@ the JAX step's at its parity defaults:
 - a shut gate leaves Adam's state alone, while statistics still advance;
 - the EMA of the generator parameters advances when the generators step.
 
+The JAX step's opt-in levers (``trainer.*``), each with its semantics and
+stream names, so that an undrawn step replays from its key:
+
+- ``shared_fakes``: one generator forward a step, from the ``g_fake``
+  stream, with a graph and the generators' statistics written; the D phase
+  sees it detached, the G phase's critics take it undetached and the
+  generator gradient flows back through that one graph. There is no
+  ``d_fake`` generator forward;
+- ``critic_joint_batch``: each critic runs once in the D phase, on
+  ``[real; fake]`` (batch 2B), so its statistics advance once, over the
+  joint batch; its noise comes from the ``joint`` stream;
+- ``critic_stat_reuse``: the G phase's critics run in eval mode, on the
+  running statistics the D phase has just advanced, and write none (their
+  Noise applies all the same);
+- ``remat``: every generator forward that carries a graph is recomputed in
+  the backward (``torch.utils.checkpoint``), ggen and cgen each on its own,
+  as ``jax.checkpoint`` wraps them. The dropout masks are drawn before the
+  checkpointed region and the recompute writes no statistics, so the step
+  equals the step without it;
+- ``ggen_double_step``: ggen's Adam steps twice on the same gradient (the
+  second weight decay on the updated parameters), cgen once, the EMA once;
+- ``trainer.norm: group``: every model's BatchNorms become
+  :class:`ChannelGroupNorm` (``models/layers.py``).
+
+Not ported: the multi-device layouts (``trainer.sync_batchnorm: false`` and
+any mesh axis past one device); :meth:`DCVGAN._refuse_levers` raises for
+them.
+
 Parameters, gradients and Adam's moments are float32; the forward and
 backward passes run in the compute dtype (``models/layers.py``). The step
 never synchronises with the host: its metrics are 0-dim device tensors.
@@ -40,6 +68,7 @@ from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from dcvgan_torch import prng
 from dcvgan_torch.compat.from_jax import FROM_JAX, read_weights_npz
@@ -82,10 +111,12 @@ class StepDraws:
     """The random draws of one train step. An entry left ``None`` is drawn
     from the step's generator; a test fills them all.
 
-    ``d_noise[critic]`` is ``{"real": draws, "fake": draws}`` and
+    ``d_noise[critic]`` is ``{"real": draws, "fake": draws}``, or
+    ``{"joint": draws}`` for the 2B batch under ``critic_joint_batch``, and
     ``g_noise[critic]`` is ``draws``, where ``draws`` maps a Noise layer's
     name to its unit-normal tensor (``models/discriminators.py``). The
-    dropout entries are the two keep masks of the colour generator.
+    dropout entries are the two keep masks of the colour generator. Under
+    ``shared_fakes`` the ``d_latents`` and ``d_dropout`` are not used.
     """
 
     t_rand: Optional[int] = None
@@ -119,10 +150,6 @@ class DCVGAN:
         config: ExperimentConfig,
         device: Optional[Union[str, torch.device]] = None,
     ):
-        if config.trainer.norm != "batch":
-            raise NotImplementedError(
-                f"trainer.norm={config.trainer.norm!r} is not ported yet"
-            )
         self.config = config
         self.device = resolve_device(device)
         self.dtype = (
@@ -143,6 +170,7 @@ class DCVGAN:
                 ngf=cfg.ggen.ngf,
                 video_length=cfg.video_length,
                 image_size=cfg.image_size,
+                norm=cfg.trainer.norm,
             )
         if name == "cgen":
             return ColorVideoGenerator(
@@ -152,13 +180,15 @@ class DCVGAN:
                 ngf=cfg.cgen.ngf,
                 video_length=cfg.video_length,
                 image_size=cfg.image_size,
+                norm=cfg.trainer.norm,
             )
         critic = {
             "idis": ImageDiscriminator, "vdis": VideoDiscriminator, "gdis": GradientDiscriminator,
         }[name]
         c = getattr(cfg, name)
         return critic(
-            ch_g=gi.channel, ch_c=3, use_noise=c.use_noise, noise_sigma=c.noise_sigma, ndf=c.ndf
+            ch_g=gi.channel, ch_c=3, use_noise=c.use_noise, noise_sigma=c.noise_sigma, ndf=c.ndf,
+            norm=cfg.trainer.norm,
         )
 
     def init_state(self, seed: int) -> GANState:
@@ -185,12 +215,13 @@ class DCVGAN:
         modules, ema = {}, {}
         for name in GENERATOR_NAMES:
             t = trees[name]
+            stats = t.get("batch_stats", {})  # none under norm: group
             module = self._build(name)
-            module.load_state_dict(FROM_JAX[name](t["params"], t["batch_stats"]))
+            module.load_state_dict(FROM_JAX[name](t["params"], stats))
             modules[name] = cast_for_compute(module, self.device, self.dtype)
             if "ema" in t:
                 avg = copy.deepcopy(module)
-                avg.load_state_dict(FROM_JAX[name](t["ema"], t["batch_stats"]))
+                avg.load_state_dict(FROM_JAX[name](t["ema"], stats))
                 ema[name] = {
                     k: p.detach().to(q.dtype)
                     for (k, p), q in zip(avg.named_parameters(), module.parameters())
@@ -240,15 +271,12 @@ class DCVGAN:
 
     # ------------------------------------------------------------ train step
     def _refuse_levers(self) -> None:
-        """The opt-in levers and the multi-device layouts are not ported."""
+        """The multi-device layouts are not ported: per-replica statistics
+        (``trainer.sync_batchnorm: false``) and any mesh axis past one
+        device."""
         cfg = self.config
-        t = cfg.trainer
-        on = [
-            f"trainer.{k}" for k in
-            ("shared_fakes", "critic_joint_batch", "critic_stat_reuse", "remat", "ggen_double_step")
-            if getattr(t, k)
-        ]
-        if not t.sync_batchnorm:
+        on = []
+        if not cfg.trainer.sync_batchnorm:
             on.append("trainer.sync_batchnorm=false")
         if cfg.mesh.data not in (-1, 1):
             on.append("mesh.data")
@@ -296,6 +324,7 @@ class DCVGAN:
         Gradients stay on the parameters' ``.grad`` until the next step."""
         self._refuse_levers()
         cfg = self.config
+        lever = cfg.trainer
         draws = draws or StepDraws()
         step = state.step + 1
         kstep = prng.on_device(prng.for_step(key, step), self.device)
@@ -313,37 +342,67 @@ class DCVGAN:
             return x[:, t_rand]
 
         def fakes(k: torch.Generator, latents, dropout, update_stats: bool):
+            """A train-mode generator forward from stream ``k``. Under
+            ``remat`` (only where it carries a graph) each generator is
+            recomputed in the backward."""
             if latents is None:
                 latents = self.sample_latents(k, b)
-            latents = Latents(*(t.to(self.device) for t in latents))
-            xg_f = state.ggen(
-                latents.z_content, latents.e, latents.h0, train=True, update_stats=update_stats
-            )
-            xc_f = state.cgen.forward_videos(
-                xg_f, latents.z_color, train=True, update_stats=update_stats,
-                dropout_masks=dropout, generator=prng.named(k, "cgen_dropout"),
-            )
-            return xg_f, xc_f
+            z_content, e, h0, z_color = (t.to(self.device) for t in latents)
+            if dropout is None:
+                dropout = state.cgen.dropout_masks(
+                    b * cfg.video_length, prng.named(k, "cgen_dropout"), self.device
+                )
 
-        def critic(name, xg, xc, update_stats, noise, k):
+            def ggen(update_stats):
+                return state.ggen(z_content, e, h0, train=True, update_stats=update_stats)
+
+            def cgen(update_stats, xg):
+                return state.cgen.forward_videos(
+                    xg, z_color, train=True, update_stats=update_stats, dropout_masks=dropout
+                )
+
+            if lever.remat and torch.is_grad_enabled():
+                ggen, cgen = _recomputed(ggen), _recomputed(cgen)
+            xg_f = ggen(update_stats)
+            return xg_f, cgen(update_stats, xg_f)
+
+        def critic(name, xg, xc, train, update_stats, noise, k):
             if name == "idis":
                 xg, xc = frame(xg), frame(xc)
             return getattr(state, name)(
-                xg, xc, train=True, update_stats=update_stats, noise=noise, generator=k
+                xg, xc, train=train, update_stats=update_stats, noise=noise, generator=k
             )
 
         # ------------------------------------------------ phase discriminator
-        with torch.no_grad():
-            xg_fake, xc_fake = fakes(
-                prng.named(kstep, "d_fake"), draws.d_latents, draws.d_dropout, False
-            )
+        kg = prng.named(kstep, "g_fake")
+        if lever.shared_fakes:
+            # the step's one generator forward; the G phase pulls its
+            # gradient back through this graph
+            xg_f, xc_f = fakes(kg, draws.g_latents, draws.g_dropout, True)
+            xg_fake, xc_fake = xg_f.detach(), xc_f.detach()
+        else:
+            with torch.no_grad():
+                xg_fake, xc_fake = fakes(
+                    prng.named(kstep, "d_fake"), draws.d_latents, draws.d_dropout, False
+                )
+        if lever.critic_joint_batch:
+            xg_joint = torch.cat([xg_real, xg_fake])
+            xc_joint = torch.cat([xc_real, xc_fake])
         d_losses = {}
         for name in CRITIC_NAMES:
             nkey = prng.named(kstep, f"{name}_noise")
             given = (draws.d_noise or {}).get(name, {})
-            # real, then fake: the running statistics advance over both in turn
-            y_real = critic(name, xg_real, xc_real, True, given.get("real"), prng.named(nkey, "d_fake"))
-            y_fake = critic(name, xg_fake, xc_fake, True, given.get("fake"), prng.named(nkey, "g_fake"))
+            if lever.critic_joint_batch:
+                # one forward on [real; fake]: the statistics advance once
+                y = critic(name, xg_joint, xc_joint, True, True, given.get("joint"),
+                           prng.named(nkey, "joint"))
+                y_real, y_fake = y[:b], y[b:]
+            else:
+                # real, then fake: the running statistics advance over both in turn
+                y_real = critic(name, xg_real, xc_real, True, True, given.get("real"),
+                                prng.named(nkey, "d_fake"))
+                y_fake = critic(name, xg_fake, xc_fake, True, True, given.get("fake"),
+                                prng.named(nkey, "g_fake"))
             d_losses[name] = self.loss.dis(y_real, y_fake)
         d_params = [p for name in CRITIC_NAMES for p in getattr(state, name).parameters()]
         d_total = d_losses["idis"] + d_losses["vdis"] + d_losses["gdis"]
@@ -354,11 +413,13 @@ class DCVGAN:
                 state.opt[name].step()
 
         # ---------------------------------------------------- phase generator
-        kg = prng.named(kstep, "g_fake")
-        xg_f, xc_f = fakes(kg, draws.g_latents, draws.g_dropout, True)
+        if not lever.shared_fakes:
+            xg_f, xc_f = fakes(kg, draws.g_latents, draws.g_dropout, True)
         g_noise = draws.g_noise or {}
+        g_train = not lever.critic_stat_reuse
         y = [
-            critic(name, xg_f, xc_f, False, g_noise.get(name), prng.named(kg, f"{name}_noise"))
+            critic(name, xg_f, xc_f, g_train, False, g_noise.get(name),
+                   prng.named(kg, f"{name}_noise"))
             for name in CRITIC_NAMES
         ]
         loss_gen = self.loss.gen(*y)
@@ -369,6 +430,9 @@ class DCVGAN:
         if step % cfg.num_dis_update == 0:
             for name in GENERATOR_NAMES:
                 state.opt[name].step()
+            if lever.ggen_double_step:
+                # the reference's second opt_ggen.step() on the same gradient
+                state.opt["ggen"].step()
             if state.ema is not None:
                 self._advance_ema(state)
 
@@ -388,3 +452,24 @@ class DCVGAN:
                 averages = [avg[k] for k in names]
                 torch._foreach_mul_(averages, float(decay))
                 torch._foreach_add_(averages, [p.detach() for p in params], alpha=rest)
+
+
+def _recomputed(forward):
+    """``forward(update_stats, *inputs)`` whose activations are recomputed in
+    the backward instead of kept (``torch.utils.checkpoint``, as
+    ``jax.checkpoint``). The recompute moves no running statistics: the
+    forward did. Every random draw is made before the call, so the
+    recompute computes what the forward did."""
+    runs = []
+
+    def run(update_stats, *inputs):
+        first = not runs
+        runs.append(None)
+        return forward(update_stats and first, *inputs)
+
+    def call(update_stats, *inputs):
+        return torch.utils.checkpoint.checkpoint(
+            run, update_stats, *inputs, use_reentrant=False, preserve_rng_state=False
+        )
+
+    return call

@@ -99,7 +99,8 @@ def test_forward_videos_repeats_the_latent_over_time():
 
 def test_train_mode_raises():
     # train mode runs unfused on batch statistics, selected by the argument
-    # and not by .training; what raises is a wrong number of dropout masks
+    # and not by .training; what raises is a missing or wrong number of
+    # dropout masks
     pm = PortCGen(in_ch=1, dim_z=DZ, ngf=NGF)
     pm.reset_parameters(torch.Generator().manual_seed(0))
     cast_for_compute(pm, torch.device("cpu"), torch.float32)
@@ -107,7 +108,10 @@ def test_train_mode_raises():
     x, z = nchw(x), torch.from_numpy(z)
     with torch.no_grad():
         ev = pm(x, z)  # a fresh module's .training flag is set: eval all the same
-        tr = pm(x, z, train=True, update_stats=False, generator=torch.Generator().manual_seed(1))
+        masks = pm.dropout_masks(x.shape[0], torch.Generator().manual_seed(1), x.device)
+        tr = pm(x, z, train=True, update_stats=False, dropout_masks=masks)
+        with pytest.raises(ValueError):  # train mode takes its masks
+            pm(x, z, train=True, update_stats=False)
         with pytest.raises(IndexError):
             pm(x, z, train=True, update_stats=False, dropout_masks=[])
     assert tr.shape == ev.shape and not torch.allclose(tr, ev)

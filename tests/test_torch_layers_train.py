@@ -236,10 +236,13 @@ def test_cgen_dropout_from_a_generator_keeps_half_and_doubles():
     _, _, pm = _cgen(jnp.float32, torch.float32, seed=3)
     x = nchw(np.random.default_rng(4).uniform(-1, 1, (8, 64, 64, 1)).astype(np.float32))
     z = torch.zeros(8, DZ_COLOR)
+    def masks(seed):
+        return pm.dropout_masks(8, torch.Generator().manual_seed(seed), x.device)
+
     with torch.no_grad():
-        a = pm(x, z, train=True, update_stats=False, generator=torch.Generator().manual_seed(1))
-        b = pm(x, z, train=True, update_stats=False, generator=torch.Generator().manual_seed(1))
-        c = pm(x, z, train=True, update_stats=False, generator=torch.Generator().manual_seed(2))
+        a = pm(x, z, train=True, update_stats=False, dropout_masks=masks(1))
+        b = pm(x, z, train=True, update_stats=False, dropout_masks=masks(1))
+        c = pm(x, z, train=True, update_stats=False, dropout_masks=masks(2))
     assert torch.equal(a, b) and not torch.equal(a, c)
 
 

@@ -7,6 +7,7 @@ into the port through ``dcvgan_torch.compat.from_jax``.
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 NGF = 8
@@ -155,3 +156,284 @@ def numpy_tree(tree):
     if hasattr(tree, "items"):
         return {k: numpy_tree(v) for k, v in tree.items()}
     return np.asarray(tree)
+
+
+# ------------------------------------------------ one train step of both packages
+# The shapes of every train-step test: ngf/ndf 8, B=2, T=16, 64x64. The JAX
+# step draws inside itself from named keys; ``step_draws`` rebuilds each key
+# with the public ``dcvgan_tpu.prng`` functions and runs the flax modules once
+# outside ``jit`` (``record_jax_draws``) to read the draws the step will make,
+# and the port's step takes them as ``StepDraws``.
+B, T, S = 2, 16, 64
+LOSSES = ("loss_idis", "loss_vdis", "loss_gdis", "loss_gen")
+LR = 2e-4
+MODEL_NAMES = ("ggen", "cgen", "idis", "vdis", "gdis")
+# whole-step gradients: see tests/test_torch_train_step.py's docstring
+GRAD_RTOL, GRAD_L2 = 8e-2, 3e-2
+
+
+def from_torch(name):
+    """``dcvgan_tpu.compat.<name>_from_torch``."""
+    from dcvgan_tpu import compat
+
+    return getattr(compat, f"{name}_from_torch")
+
+
+def step_raw(**over):
+    """The raw config of the train-step tests; a dict entry of ``over``
+    updates that section, any other value replaces it."""
+    raw = {
+        "batchsize": B, "seed": 0, "video_length": T, "image_size": S,
+        "geometric_info": {"name": "depth", "channel": 1},
+        "ggen": {"dim_z_content": 8, "dim_z_motion": 4, "ngf": 8},
+        "cgen": {"dim_z_color": 4, "ngf": 8},
+        "idis": {"use_noise": True, "noise_sigma": 0.1, "ndf": 8},
+        "vdis": {"use_noise": True, "noise_sigma": 0.1, "ndf": 8},
+        "gdis": {"use_noise": False, "noise_sigma": 0.2, "ndf": 8},
+        "trainer": {"precision": "float32"},
+    }
+    for k, v in over.items():
+        raw[k] = {**raw.get(k, {}), **v} if isinstance(v, dict) else v
+    return raw
+
+
+def step_configs(**over):
+    """(JAX config, port config) of ``step_raw(**over)``."""
+    import copy
+
+    from dcvgan_torch.config import ExperimentConfig as PortConfig
+    from dcvgan_tpu.config import ExperimentConfig as JaxConfig
+
+    raw = step_raw(**over)
+    jcfg, pcfg = JaxConfig.from_dict(copy.deepcopy(raw)), PortConfig.from_dict(copy.deepcopy(raw))
+    jcfg.trainer.donate_state = False
+    jcfg.validate()
+    pcfg.validate()
+    return jcfg, pcfg
+
+
+def step_batch(seed, dtype):
+    """A loader batch of uint8 (or the same dequantised to float32) colour
+    and depth videos."""
+    rng = np.random.default_rng(seed)
+    u8 = {"color": rng.integers(0, 256, (B, T, S, S, 3), dtype=np.uint8),
+          "depth": rng.integers(0, 256, (B, T, S, S, 1), dtype=np.uint8)}
+    if dtype == np.uint8:
+        return u8
+    return {k: v.astype(np.float32) / np.float32(127.5) - np.float32(1.0) for k, v in u8.items()}
+
+
+def jax_state(gan, seed: int, step: int = 0):
+    """A JAX state whose parameters and statistics are drawn at a scale that
+    keeps activations O(1), with fresh Adam states."""
+    import jax
+    import jax.numpy as jnp
+
+    from dcvgan_tpu import prng as jax_prng
+    from dcvgan_tpu.train.state import GANState, ModelState
+
+    template = jax.eval_shape(lambda: gan.init_state(jax_prng.base_key(0)))
+    rng = np.random.default_rng(seed)
+    models = {}
+    for name in MODEL_NAMES:
+        ms = getattr(template, name)
+        params = jax.tree.map(jnp.asarray, randomize_tree(ms.params, rng))
+        stats = jax.tree.map(jnp.asarray, randomize_tree(ms.batch_stats, rng))
+        models[name] = ModelState(params=params, batch_stats=stats,
+                                  opt_state=gan.tx[name].init(params))
+    ema = None
+    if gan.config.trainer.ema_decay > 0:
+        ema = {n: jax.tree.map(jnp.asarray, randomize_tree(getattr(template, n).params, rng))
+               for n in ("ggen", "cgen")}
+    return GANState(step=jnp.asarray(step, jnp.int32), ema=ema, **models)
+
+
+def jax_trees(state) -> dict:
+    """A JAX ``GANState`` as the numpy trees ``load_gan_state_`` reads."""
+    trees = {"step": int(state.step), "ema": None if state.ema is None else numpy_tree(state.ema)}
+    for name, ms in state.models.items():
+        adam = ms.opt_state[1]
+        trees[name] = {
+            "params": numpy_tree(ms.params), "batch_stats": numpy_tree(ms.batch_stats),
+            "opt": {"count": int(adam.count), "mu": numpy_tree(adam.mu), "nu": numpy_tree(adam.nu)},
+        }
+    return trees
+
+
+def port_state(pgan, jstate):
+    """The port's ``GANState`` equal to ``jstate``."""
+    from dcvgan_torch.compat.from_jax import load_gan_state_
+
+    state = pgan.init_state(0)
+    load_gan_state_(state, jax_trees(jstate))
+    return state
+
+
+def step_draws(gan, state, key, step: int):
+    """The draws ``gan.train_step`` makes at 1-based ``step`` under ``key``,
+    as the port's ``StepDraws``: under ``shared_fakes`` no ``d_fake``
+    latents, under ``critic_joint_batch`` the critics' D-phase noise of the
+    ``joint`` stream for the 2B batch."""
+    import jax
+    import jax.numpy as jnp
+
+    from dcvgan_torch.train.step import Latents, StepDraws
+    from dcvgan_tpu import prng as jax_prng
+    from dcvgan_tpu.models import ColorVideoGenerator as JaxCGen
+
+    cfg = gan.config
+    kstep = jax_prng.for_step(key, step)
+    t_rand = int(jax.random.randint(jax_prng.named(kstep, "t_rand"), (), 0, cfg.video_length))
+    gv = {"params": state.ggen.params, "batch_stats": state.ggen.batch_stats}
+    cv = {"params": state.cgen.params, "batch_stats": state.cgen.batch_stats}
+
+    def fakes(k):
+        (xg, _), d = record_jax_draws(lambda: gan.ggen.apply(
+            gv, B, train=True, rngs={"latent": jax_prng.named(k, "ggen_motion")},
+            mutable=["batch_stats"]))
+        _, dc = record_jax_draws(lambda: gan.cgen.apply(
+            cv, xg, train=True,
+            rngs={"latent": jax_prng.named(k, "cgen_color"),
+                  "dropout": jax_prng.named(k, "cgen_dropout")},
+            mutable=["batch_stats"], method=JaxCGen.forward_videos))
+        z = d["z"][0].reshape(B, T, -1)
+        lat = Latents(*as_tensors([z[:, 0, : cfg.ggen.dim_z_content], d["e"][0], d["h0"][0],
+                                   dc["z_color"][0].reshape(B, T, -1)[:, 0]]))
+        return lat, as_tensors(dc["dropout"])
+
+    def noise(name, k, batch=B):
+        lead = (batch, S, S) if name == "idis" else (batch, T, S, S)
+        ms = getattr(state, name)
+        _, d = record_jax_draws(lambda: gan.modules[name].apply(
+            {"params": ms.params, "batch_stats": ms.batch_stats},
+            jnp.zeros(lead + (1,), gan.dtype), jnp.zeros(lead + (3,), gan.dtype), True,
+            rngs={"noise": k}, mutable=["batch_stats"]))
+        return as_tensors(d["noise"][0])
+
+    kd, kg = jax_prng.named(kstep, "d_fake"), jax_prng.named(kstep, "g_fake")
+    d_lat = d_drop = None
+    if not cfg.trainer.shared_fakes:
+        d_lat, d_drop = fakes(kd)
+    g_lat, g_drop = fakes(kg)
+    d_noise, g_noise = {}, {}
+    for name in ("idis", "vdis", "gdis"):
+        nkey = jax_prng.named(kstep, f"{name}_noise")
+        if cfg.trainer.critic_joint_batch:
+            d_noise[name] = {"joint": noise(name, jax_prng.named(nkey, "joint"), 2 * B)}
+        else:
+            d_noise[name] = {"real": noise(name, jax_prng.named(nkey, "d_fake")),
+                             "fake": noise(name, jax_prng.named(nkey, "g_fake"))}
+        g_noise[name] = noise(name, jax_prng.named(kg, f"{name}_noise"))
+    return StepDraws(t_rand, d_lat, g_lat, d_drop, g_drop, d_noise, g_noise)
+
+
+def port_tree(name, module, values):
+    """Per-parameter tensors of ``module`` (gradients, say) as a flax tree.
+    The JAX package's ``*_from_torch`` reads every norm's running
+    statistics; a GroupNorm, which has none, is handed placeholders."""
+    from dcvgan_torch.models.layers import ChannelGroupNorm
+
+    sd = {k: v.detach().clone() for k, v in module.state_dict().items()}
+    for k, m in module.named_modules():
+        if isinstance(m, ChannelGroupNorm):
+            sd[f"{k}.running_mean"] = torch.zeros_like(m.weight)
+            sd[f"{k}.running_var"] = torch.ones_like(m.weight)
+    for k, v in values.items():
+        if k == "recurrent.bias_hn":
+            sd["recurrent.bias_hh"] = torch.cat([torch.zeros(2 * v.numel()), v.detach()])
+        else:
+            sd[k] = v.detach()
+    return from_torch(name)({k: v.numpy() for k, v in sd.items()})[0]
+
+
+def port_stats(name, module):
+    """The running statistics of ``module`` as a flat flax tree."""
+    sd = {k: v.numpy() for k, v in module.state_dict().items()}
+    return flatten_tree(from_torch(name)(sd)[1])
+
+
+def jax_grads(before, after, name: str, cfg, n_steps: int = 1):
+    """The gradient the JAX step fed Adam, from its first moment. From zero
+    moments, ``n_steps`` steps on one gradient ``g`` give
+    ``mu = (1 - b1**n) * g + decay * (...)``; the weight decay term is taken
+    at the parameters before the step, which for two steps is off by
+    ``decay * lr`` (1e-9 at the tests' settings)."""
+    opt = getattr(cfg, name).optimizer
+    mu = flatten_tree(numpy_tree(getattr(after, name).opt_state[1].mu))
+    p = flatten_tree(numpy_tree(getattr(before, name).params))
+    return {k: mu[k] / np.float32(1.0 - opt.b1 ** n_steps) - np.float32(opt.decay) * p[k]
+            for k in mu}
+
+
+def gradient_gaps(jgan, jbefore, jafter, pstate, name):
+    """How far the port's gradients of ``name`` lie from the JAX step's:
+    the largest per-tensor ``max |diff| / max |want|`` and the whole
+    model's relative L2 distance."""
+    want = jax_grads(jbefore, jafter, name, jgan.config)
+    module = getattr(pstate, name)
+    got = flatten_tree(port_tree(name, module, {k: p.grad for k, p in module.named_parameters()}))
+    per_tensor = max(float(np.abs(got[k] - g).max() / np.abs(g).max()) for k, g in want.items())
+    a = np.concatenate([got[k].ravel() for k in want])
+    b = np.concatenate([want[k].ravel() for k in want])
+    return per_tensor, float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def gradients_close(jgan, jbefore, jafter, pstate, name, n_steps: int = 1, zero=()):
+    """The port's gradients of ``name`` against the JAX step's, per tensor
+    and in L2 (``GRAD_RTOL``, ``GRAD_L2``; the image critic at ``ATOL_F32``).
+    Every tensor's gradient is nonzero, except those named in ``zero``:
+    0 in JAX (up to the rounding of its weight decay term) and rounding
+    residue in the port, at most 5e-5 of the model's largest gradient."""
+    want = jax_grads(jbefore, jafter, name, jgan.config, n_steps)
+    module = getattr(pstate, name)
+    got = flatten_tree(port_tree(name, module, {k: p.grad for k, p in module.named_parameters()}))
+    assert set(got) == set(want) and len(got) > 3
+    rtol = ATOL_F32 if name == "idis" else GRAD_RTOL
+    top = max(float(np.abs(g).max()) for g in want.values())
+    for k, g in want.items():
+        if k in zero:
+            assert np.abs(g).max() <= 1e-9 and np.abs(got[k]).max() <= 5e-5 * top, k
+            continue
+        scale = float(np.abs(g).max())
+        assert scale > 0, k
+        within(got[k], g, rtol * scale + 1e-6)
+    a = np.concatenate([got[k].ravel() for k in want])
+    b = np.concatenate([want[k].ravel() for k in want])
+    assert np.linalg.norm(a - b) <= GRAD_L2 * np.linalg.norm(b)
+
+
+def run_pair(jcfg, pcfg, seed, batch, step0=0, jgan=None):
+    """One step of each package from the same state (drawn from ``seed``
+    at ``step0``) and the same draws; returns
+    ``(jgan, jstate, jafter, jmetrics, pgan, pstate, pmetrics)``, with the
+    draws kept as ``pgan.last_draws``. ``jgan``, an earlier pair's JAX
+    model of the same config, reuses its compiled step."""
+    import jax.numpy as jnp
+
+    from dcvgan_torch import prng as port_prng
+    from dcvgan_torch.train.step import DCVGAN as PortGAN
+    from dcvgan_tpu import prng as jax_prng
+    from dcvgan_tpu.train.step import DCVGAN as JaxGAN
+
+    jgan, pgan = jgan or JaxGAN(jcfg), PortGAN(pcfg, device="cpu")
+    jstate = jax_state(jgan, seed, step0)
+    pstate = port_state(pgan, jstate)
+    key = jax_prng.base_key(3)
+    draws = step_draws(jgan, jstate, key, step0 + 1)
+    jafter, jmetrics = jgan.jitted_train_step(jstate, {k: jnp.asarray(v) for k, v in batch.items()}, key)
+    pstate, pmetrics = pgan.train_step(pstate, batch, port_prng.base_key(3), draws)
+    pgan.last_draws = draws
+    return jgan, jstate, jafter, jmetrics, pgan, pstate, pmetrics
+
+
+@pytest.fixture(scope="module")
+def one_intra_op_thread():
+    """One intra-op thread for torch while a module's tests run, restored
+    after. The port's eager steps at these widths are small, and with
+    several test workers on one machine each worker's full-width thread
+    pool oversubscribes the cores: such a step took 20 s there against
+    0.2 s alone. A module opts in with ``pytestmark``."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -45,13 +45,24 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
    ``critic_stat_reuse`` bf16 step against the same step on the CPU; then
    the flagship's train it/s and peak memory under six lever settings, each
    in turns with levers off, and remat's peak memory;
-8. the evaluation path: ``Trainer.evaluate`` on the trained state with
+8. the raw-dataset path: SURREAL- and IsoGD-style raw trees built from a
+   seed at the raw frame size (64 and 104 videos of 20 frames at 320x240),
+   ``python -m dcvgan_torch.cli.preprocess`` of each in its own process (the
+   written trees checked), the host library (``dcvgan_torch.native``) held
+   bit for bit against its numpy forms and timed against them in turns,
+   then ``configs/surreal-segm.yml`` (batch 60) and ``configs/isogd-flow.yml``
+   (batch 100) at their full widths through ``build_dataset`` +
+   ``Trainer.train()`` on the written trees, 8 and 6 steps, counters from 0
+   just before and read just after: ``dequantize_video`` once a step,
+   ``fused_norm_act_conv`` 5 per cgen forward of ``log_samples`` and never
+   in a step; both kernels held at these runs' shapes first;
+9. the evaluation path: ``Trainer.evaluate`` on the trained state with
    ``configs/mug-depth.yml``'s evaluation block (IS and FID of 200 samples,
    the v2 extractor npz, the synthetic dataset as the real side), the
    device-resident and host paths held to the same scores;
-9. the inference path: ``cli.infer`` on the training run (40 videos, mp4s
+10. the inference path: ``cli.infer`` on the training run (40 videos, mp4s
    read back), then ``cli.evaluate`` of the colour directory;
-10. the HTTP path: ``cli.serve``'s ``GenerationServer`` on the training run
+11. the HTTP path: ``cli.serve``'s ``GenerationServer`` on the training run
    behind ``serve_http`` in this process: seeded bytes over two chunks and a
    geo npz equal to ``generate``, a 400, a 413 and a 429, ``/stats`` equal to
    what was sent; the latency, delivered videos/s, delivered share, idle
@@ -59,7 +70,7 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
    n=16 requests at two server shapes (64 x 1 round and 256 x 4 rounds a
    chunk); then ``cli.serve <run> -1 --sink mp4 --with-geo`` (128 + 128
    mp4s read back); counters set to 0 just before and read just after;
-11. a ``{"kernels": [...]}`` line, the card's line, and last
+12. a ``{"kernels": [...]}`` line, the card's line, and last
     ``{"ok": true, "device": {...}}``.
 
 Every phase prints its numbers as it goes. Imports nothing of JAX.
@@ -75,12 +86,14 @@ import importlib.util
 import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -984,6 +997,24 @@ def lever_config(name: str, root: Path):
     return cfg
 
 
+def counting_trainer():
+    """A ``Trainer`` that counts its ``log_samples`` rounds and the fused
+    launches made inside them."""
+    from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+    from dcvgan_torch.train.trainer import Trainer
+
+    class CountingTrainer(Trainer):
+        sample_rounds = sample_launches = 0
+
+        def log_samples(self, iteration):
+            before = fused_norm_act_conv.launches
+            super().log_samples(iteration)
+            self.sample_rounds += 1
+            self.sample_launches += fused_norm_act_conv.launches - before
+
+    return CountingTrainer
+
+
 def train_lever_config(name: str, root: Path) -> dict:
     """``Trainer.train()`` of one lever config, counters from 0 just before
     and read just after: ``dequantize_video`` once a step, and
@@ -994,17 +1025,7 @@ def train_lever_config(name: str, root: Path) -> dict:
     from dcvgan_torch.ops.fused_block import fused_norm_act_conv
     from dcvgan_torch.train.trainer import LOSS_NAMES, Trainer
 
-    class CountingTrainer(Trainer):
-        """Counts the fused launches of its sample rounds."""
-
-        sample_rounds = sample_launches = 0
-
-        def log_samples(self, iteration):
-            before = fused_norm_act_conv.launches
-            super().log_samples(iteration)
-            self.sample_rounds += 1
-            self.sample_launches += fused_norm_act_conv.launches - before
-
+    CountingTrainer = counting_trainer()
     cfg = lever_config(name, root)
     dataset = build_dataset(cfg)
     logger = recorder(Path(cfg.log_dir) / cfg.experiment_name)
@@ -1390,6 +1411,348 @@ def phase_levers(run: dict, card: str) -> dict:
             "dequant_err": max(r["dequant_err"] for r in runs.values()),
             "fused_err": max(r["fused_err"] for r in runs.values()),
             "remat": remat, "reuse": reuse, "numbers": numbers}
+
+
+# ---------------------------------------------------------------- datasets
+# the dataset phase's raw trees, at SURREAL's and IsoGD's raw frame size
+# (320 x 240), 20 frames a video: enough videos for one batch of
+# configs/surreal-segm.yml (60) and configs/isogd-flow.yml (100)
+RAW_T, RAW_H, RAW_W = 20, 240, 320
+RAW_VIDEOS = {"surreal": 64, "isogd": 104}
+# each config as it stands, trained one batch an epoch for this many steps
+DATASET_STEPS = {"surreal-segm": 8, "isogd-flow": 6}
+# the config fields each run must keep, and the first critic losses they
+# start from: 2 ln 2 for the adversarial loss, 2 for the hinge loss (logits
+# near 0 at initialisation), each held within 0.2
+DATASET_CONFIGS = {
+    "surreal-segm": {"dataset": "surreal", "batchsize": 60, "loss": "adversarial-loss",
+                     "num_gen_update": 2, "widths": (96, 64, 64, 48, 32), "first_d": 2 * math.log(2)},
+    "isogd-flow": {"dataset": "isogd", "batchsize": 100, "loss": "hinge-loss",
+                   "num_gen_update": 1, "widths": (64, 64, 64, 64, 32), "first_d": 2.0},
+}
+
+
+def sliding_frames(rng: np.random.Generator, t: int) -> np.ndarray:
+    """(t, RAW_H, RAW_W, 3) uint8: a random pattern of 16-pixel blocks that
+    slides 2 pixels a frame, so that optical flow finds motion."""
+    blocks = rng.integers(0, 256, (RAW_H // 16, RAW_W // 16, 3), np.uint8)
+    frame = np.repeat(np.repeat(blocks, 16, 0), 16, 1)
+    return np.stack([np.roll(frame, 2 * i, axis=1) for i in range(t)])
+
+
+def write_surreal_raw(root: Path, n: int) -> None:
+    """A SURREAL-style raw tree under ``root``, as the JAX package's
+    preprocessing tests build it: per video an mp4, ``_depth.mat`` (float32,
+    the 1e10 background on ~70% of pixels), ``_segm.mat`` (uint8 labels
+    0-24) and ``_info.mat`` (24 joints in the middle of the frame)."""
+    import scipy.io
+    from dcvgan_torch.io.video import write_video
+
+    def one(v: int) -> None:
+        rng = np.random.default_rng((7, v))
+        seq = root / "train" / "run0" / f"{v:03d}_01"
+        seq.mkdir(parents=True, exist_ok=True)
+        stem = f"{v:03d}_01_c0001"
+        write_video(sliding_frames(rng, RAW_T), seq / f"{stem}.mp4")
+        shape = (RAW_T, RAW_H, RAW_W)
+        depth = np.where(rng.random(shape) < 0.3, rng.uniform(2, 5, shape), 1e10).astype(np.float32)
+        scipy.io.savemat(seq / f"{stem}_depth.mat", {f"depth_{i + 1}": d for i, d in enumerate(depth)})
+        segm = rng.integers(0, 25, shape, np.uint8)
+        scipy.io.savemat(seq / f"{stem}_segm.mat", {f"segm_{i + 1}": s for i, s in enumerate(segm)})
+        joints = np.stack([rng.uniform(RAW_W * 0.4, RAW_W * 0.6, (24, RAW_T)),
+                           rng.uniform(RAW_H * 0.3, RAW_H * 0.7, (24, RAW_T))])
+        scipy.io.savemat(seq / f"{stem}_info.mat", {"joints2D": joints})
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(one, range(n)))
+
+
+def write_isogd_raw(root: Path, n: int) -> None:
+    """An IsoGD-style raw tree under ``root``: colour and depth mp4s per
+    video and ``train_list.txt`` of (colour, depth, label) rows."""
+    from dcvgan_torch.io.video import write_video
+
+    def one(v: int) -> str:
+        rng = np.random.default_rng((11, v))
+        color, depth = f"train/{v:03d}/M_{v:05d}.mp4", f"train/{v:03d}/K_{v:05d}.mp4"
+        (root / "train" / f"{v:03d}").mkdir(parents=True, exist_ok=True)
+        write_video(sliding_frames(rng, RAW_T), root / color)
+        write_video(sliding_frames(rng, RAW_T), root / depth)
+        return f"{color} {depth} {v % 249 + 1}"
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        rows = list(pool.map(one, range(n)))
+    (root / "train_list.txt").write_text("\n".join(rows) + "\n")
+
+
+def preprocess_cli(dataset: str, raw: Path, out: Path) -> float:
+    """``python -m dcvgan_torch.cli.preprocess <dataset> raw out --img-size
+    64`` in its own process, then its tree checked: one ``list.txt`` line a
+    raw video, each video's frames and arrays at 64 x 64, and every preview
+    mp4 decodes. Returns the preprocessing seconds."""
+    from dcvgan_torch.io.video import read_video
+
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "dcvgan_torch.cli.preprocess", dataset, str(raw), str(out),
+         "--img-size", "64"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise AssertionError(f"cli.preprocess {dataset} exited {done.returncode}:\n{done.stderr[-4000:]}")
+    lines = (out / "list.txt").read_text().splitlines()
+    n = RAW_VIDEOS[dataset]
+    if len(lines) != n or any(not line.endswith(f" {RAW_T}") for line in lines):
+        raise AssertionError(f"{dataset}: list.txt has {len(lines)} lines for {n} raw videos")
+    arrays = {"surreal": {"depth.npy": (RAW_T, 64, 64), "segm.npy": (RAW_T, 64, 64)},
+              "isogd": {"optical-flow.npy": (RAW_T - 1, 64, 64, 2)}}[dataset]
+    frame_dirs = {"surreal": ("color",), "isogd": ("color", "depth")}[dataset]
+    previews = {"surreal": ("color", "depth", "segm"), "isogd": ("color", "depth", "optical-flow")}[dataset]
+    for line in lines:
+        name = line.split()[0]
+        for sub in frame_dirs:
+            if len(list((out / name / sub).glob("*.jpg"))) != RAW_T:
+                raise AssertionError(f"{dataset} {name}: not {RAW_T} {sub} frames")
+        for f, shape in arrays.items():
+            a = np.load(out / name / f)
+            if a.shape != shape:
+                raise AssertionError(f"{dataset} {name}/{f}: shape {a.shape}, not {shape}")
+        for sub in previews:
+            v = read_video(out / sub / f"{name}.mp4")
+            if v.shape[1:] != (64, 64, 3) or len(v) < RAW_T - 1:
+                raise AssertionError(f"{dataset} preview {sub}/{name}.mp4 decodes as {v.shape}")
+    print(f"cli.preprocess {dataset}: {n} raw videos ({RAW_T} frames of {RAW_W}x{RAW_H}) in "
+          f"{seconds:.2f} s = {n / seconds:.2f} videos/s with {os.cpu_count()} CPUs; {len(lines)} listed, "
+          f"frames, arrays and {len(previews) * n} previews checked", flush=True)
+    return seconds
+
+
+def check_native(card: str) -> dict:
+    """The host library bit for bit against the numpy forms at the shapes the
+    run gives it (``one_hot`` of log_samples' real segmentation batch, with
+    labels >= 25 mixed in; ``scale_f32`` of a flow sample; ``normalize_u8``
+    of a colour sample), then each timed against its numpy form in turns
+    (numpy, native, native, numpy; median of 20 calls each)."""
+    from dcvgan_torch import native
+    from dcvgan_torch.data import host_ops
+    from dcvgan_torch.train.trainer import Trainer
+
+    if not native.available():
+        raise AssertionError("the host library did not build")
+    rng = np.random.default_rng(5)
+    labels = rng.integers(0, 25, (Trainer.NUM_LOG * 16, 64, 64), np.uint8)
+    flat = labels.reshape(-1)  # a view
+    flat[::7] = rng.integers(25, 256, flat[::7].size, dtype=np.uint8)  # all-zero rows
+    flow = (rng.normal(size=(16, 64, 64, 2)) * 5).astype(np.float32)
+    frames = rng.integers(0, 256, (16, 64, 64, 3), np.uint8)
+    cases = {
+        "one_hot": (lambda: native.one_hot(labels, 25), lambda: host_ops.one_hot(labels, 25), labels.shape),
+        "scale_f32": (lambda: native.scale_f32(flow, 1 / 64), lambda: host_ops.scale_f32(flow, 1 / 64),
+                      flow.shape),
+        "normalize_u8": (lambda: native.normalize_u8(frames, 127.5, -1.0),
+                         lambda: host_ops.normalize_u8(frames, 127.5, -1.0), frames.shape),
+    }
+
+    def median_ms(fn, reps: int = 20) -> float:
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    out = {}
+    for name, (fast, plain, shape) in cases.items():
+        a, b = fast(), plain()
+        if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
+            raise AssertionError(f"native {name} differs from its numpy form at {shape}")
+        turns = [median_ms(f) for f in (plain, fast, fast, plain)]
+        out[name] = {"shape": list(shape), "numpy_ms": [turns[0], turns[3]], "native_ms": [turns[1], turns[2]]}
+    print("native " + json.dumps({"threads": native.DEFAULT_THREADS, "cpus": os.cpu_count(), **out})
+          + f" (bit for bit equal to the numpy forms; host CPU of the card's machine, {card})", flush=True)
+    return out
+
+
+def dataset_config(name: str, root: Path, processed: Path):
+    """``configs/<name>.yml`` as it stands, pointed at the trees under
+    ``root``: these fields change, nothing else (PERF.md lists them)."""
+    from dcvgan_torch.config import load_config
+
+    cfg = load_config(ROOT / "configs" / f"{name}.yml")
+    want = DATASET_CONFIGS[name]
+    widths = (cfg.ggen.ngf, cfg.cgen.ngf, cfg.idis.ndf, cfg.vdis.ndf, cfg.gdis.ndf)
+    if (cfg.dataset.name, cfg.batchsize, cfg.loss, cfg.num_gen_update, widths, cfg.trainer.precision) \
+            != (want["dataset"], want["batchsize"], want["loss"], want["num_gen_update"], want["widths"],
+                "bfloat16"):
+        raise AssertionError(f"configs/{name}.yml is no longer the config this phase was written for")
+    steps = DATASET_STEPS[name]
+    cfg.dataset.path = str(root / "raw" / want["dataset"])
+    cfg.dataset.processed_root = str(processed)
+    cfg.log_dir, cfg.tensorboard_dir = str(root / "result"), str(root / "result" / "runs")
+    cfg.n_epochs = steps  # one batch an epoch
+    # one sample round and one checkpoint inside the run, beside the
+    # trainer's own at step 0 and at the end
+    cfg.log_samples_interval = cfg.snapshot_interval = steps // 2 + 1
+    # the losses reach the logger at each window's end: a loss fetch (one
+    # host sync) every 2 steps, where the config's 160 would fetch none
+    cfg.log_interval = 2
+    cfg.evaluation.metrics = []
+    return cfg
+
+
+class CallCounter:
+    """Counts the calls of ``module``'s functions ``names`` while active
+    (thread-safe: the loader's workers call them)."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+        self.counts = {n: 0 for n in names}
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for n, fn in self.saved.items():
+            def counted(*args, _fn=fn, _n=n, **kwargs):
+                with self._lock:
+                    self.counts[_n] += 1
+                return _fn(*args, **kwargs)
+            setattr(self.module, n, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+
+
+def train_dataset_config(name: str, root: Path, processed: Path, card: str) -> dict:
+    """``build_dataset`` + ``Trainer.train()`` of one dataset config on the
+    tree ``cli.preprocess`` wrote, counters from 0 just before and read just
+    after: ``dequantize_video`` once a step (the colour batch; segmentation
+    is one-hot on the card, flow arrives as float16), ``fused_norm_act_conv``
+    5 per cgen forward, all inside ``log_samples``; the host library's
+    calls counted too. Both kernels are held at this run's shapes first."""
+    from dcvgan_torch import native
+    from dcvgan_torch.cli.train import build_dataset
+    from dcvgan_torch.ops.dequant import dequantize_video
+    from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+    from dcvgan_torch.train.trainer import LOSS_NAMES, Trainer
+
+    cfg = dataset_config(name, root, processed)
+    steps = DATASET_STEPS[name]
+    dataset = build_dataset(cfg)
+    if len(dataset) != RAW_VIDEOS[DATASET_CONFIGS[name]["dataset"]]:
+        raise AssertionError(f"{name}: the dataset lists {len(dataset)} videos")
+    logger = recorder(Path(cfg.log_dir) / cfg.experiment_name)
+    batch = device_batches(dataset, cfg.batchsize, 1)[0]
+    dequant_err = check_dequant_batch({"color": batch["color"]}, f"{name} batch {cfg.batchsize}")
+    fused_err = check_sites(Trainer.NUM_LOG * cfg.video_length, f"{name} log_samples", cgen_sites(cfg))
+    del batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    CountingTrainer = counting_trainer()
+    with CallCounter(native, ("normalize_u8", "one_hot", "scale_f32")) as calls:
+        fused_norm_act_conv.launches = 0
+        dequantize_video.launches = 0
+        # -- main path: counts from 0 --------------------------------------
+        t0 = time.perf_counter()
+        trainer = CountingTrainer(cfg, dataset, logger=logger)
+        state = trainer.train()
+        torch.cuda.synchronize()
+        dq, fused = dequantize_video.launches, fused_norm_act_conv.launches
+        # -- end of main path ------------------------------------------------
+    train_s = time.perf_counter() - t0
+    print(f"{name} ({cfg.geometric_info.name}, batch {cfg.batchsize}, {cfg.loss}, num_gen_update "
+          f"{cfg.num_gen_update}): {state.step} steps in {train_s:.1f} s; dequantize_video launches "
+          f"{dq}; fused_norm_act_conv launches {fused} ({trainer.sample_launches} in "
+          f"{trainer.sample_rounds} log_samples rounds); host library calls {json.dumps(calls.counts)}",
+          flush=True)
+    if state.step != steps or dq != steps:
+        raise AssertionError(f"{name}: expected {steps} steps and {steps} dequant launches")
+    if fused != trainer.sample_launches:
+        raise AssertionError(f"{name}: a train step launched fused_norm_act_conv")
+    if trainer.sample_rounds != 3 or trainer.sample_launches != 5 * trainer.sample_rounds:
+        raise AssertionError(f"{name}: expected 3 sample rounds of 5 fused launches")
+    geo = cfg.geometric_info.name
+    if geo == "optical-flow" and calls.counts["scale_f32"] < steps * cfg.batchsize:
+        raise AssertionError(f"{name}: the flow of {steps * cfg.batchsize} samples did not pass scale_f32")
+    if geo == "segmentation" and calls.counts["one_hot"] != trainer.sample_rounds:
+        raise AssertionError(f"{name}: log_samples did not one-hot its real batch natively")
+    losses = {k: logger.seen[k] for k in LOSS_NAMES}
+    for k, v in losses.items():
+        if len(v) != steps or not all(math.isfinite(x) for x in v):
+            raise AssertionError(f"{name} {k}: {len(v)} values, not all finite")
+    first = {k: v[0] for k, v in losses.items()}
+    print(f"{name}: first step " + json.dumps(first) + " last step "
+          + json.dumps({k: v[-1] for k, v in losses.items()}), flush=True)
+    for k in ("loss_idis", "loss_vdis", "loss_gdis"):
+        if abs(first[k] - DATASET_CONFIGS[name]["first_d"]) > 0.2:
+            raise AssertionError(f"{name}: first-step {k} {first[k]} is not within 0.2 of "
+                                 f"{DATASET_CONFIGS[name]['first_d']:.4f}")
+    windows = logger.seen["iters_per_sec"]
+    print(f"{name} train it/s at batch {cfg.batchsize}, one batch an epoch (loader and step in series, "
+          f"a loss fetch every 2 steps): windows of 2 steps {[round(w, 3) for w in windows]}, median "
+          f"after the first {statistics.median(windows[1:]):.3f} on {card}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    check_restore(trainer, state, cfg)
+    trainer.loader.close()
+    split = loader_and_step_ms(trainer, dataset, cfg)
+    loader = split["loader_batches_ms"]
+    print(f"{name} at batch {cfg.batchsize}: the loader alone median {split['loader_ms']:.1f} ms a batch "
+          f"over {len(loader)} batches ({min(loader):.1f}-{max(loader):.1f}; {cfg.dataset.n_workers} "
+          f"workers, host clock), the step alone {split['step_ms']:.1f} ms on one resident batch "
+          f"(synchronised), against {1e3 / statistics.median(windows[1:]):.1f} ms a step in the run's "
+          f"windows; with prefetch over many batches an epoch a step would take the larger of the two: "
+          f"at most {1e3 / max(split['loader_ms'], split['step_ms']):.3f} it/s, on {card}", flush=True)
+    return {"dequant": dq, "fused": fused, "dequant_err": dequant_err, "fused_err": fused_err,
+            "it_s": windows, "native_calls": calls.counts, **split}
+
+
+def loader_and_step_ms(trainer, dataset, cfg, epochs: int = 12, steps: int = 4) -> dict:
+    """Where a step's time goes: the config's loader alone, each of
+    ``epochs`` epochs of one batch timed on its own (the loader decodes one
+    batch at a time, its samples over the workers, so a batch's time is its
+    rate), and the train step alone on one resident batch (``steps`` steps
+    after one, ending in a synchronise), in ms a batch."""
+    from dcvgan_torch.data.loader import VideoLoader
+
+    loader_batches_ms = []
+    with VideoLoader(dataset, cfg.batchsize, n_workers=cfg.dataset.n_workers, seed=5) as loader:
+        for epoch in range(epochs):
+            t0 = time.perf_counter()
+            for host_batch in loader.epoch_iterator(epoch):
+                loader_batches_ms.append((time.perf_counter() - t0) * 1e3)
+    loader_ms = statistics.median(loader_batches_ms)
+    batch, state = trainer.to_device(host_batch), trainer.state
+    state, _ = trainer.gan.train_step(state, batch, trainer.base_key)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = trainer.gan.train_step(state, batch, trainer.base_key)
+    torch.cuda.synchronize()
+    return {"loader_ms": loader_ms, "loader_batches_ms": loader_batches_ms,
+            "step_ms": (time.perf_counter() - t0) * 1e3 / steps}
+
+
+def phase_datasets(card: str) -> dict:
+    """The raw-dataset path: SURREAL- and IsoGD-style raw trees at the raw
+    frame size, ``cli.preprocess`` of each in its own process, the host
+    library held bit for bit, then ``configs/surreal-segm.yml`` and
+    ``configs/isogd-flow.yml`` trained at their full widths on the trees
+    written. Its temporary directory is its own and goes at its end."""
+    with tempfile.TemporaryDirectory(prefix="dcvgan_smoke_datasets_") as tmp:
+        root = Path(tmp)
+        processed = root / "processed"
+        t0 = time.perf_counter()
+        write_surreal_raw(root / "raw" / "surreal", RAW_VIDEOS["surreal"])
+        write_isogd_raw(root / "raw" / "isogd", RAW_VIDEOS["isogd"])
+        raw_mb = sum(p.stat().st_size for p in (root / "raw").rglob("*") if p.is_file()) / 1e6
+        print(f"raw trees: {RAW_VIDEOS['surreal']} SURREAL and {RAW_VIDEOS['isogd']} IsoGD videos, "
+              f"{raw_mb:.0f} MB, written in {time.perf_counter() - t0:.1f} s", flush=True)
+        seconds = {d: preprocess_cli(d, root / "raw" / d, processed / d / "train") for d in RAW_VIDEOS}
+        native_times = check_native(card)
+        runs = {name: train_dataset_config(name, root, processed, card) for name in DATASET_STEPS}
+    torch.cuda.empty_cache()
+    return {"runs": runs, "preprocess_s": seconds, "native": native_times}
 
 
 EVAL_WEIGHTS = "assets/extractor-synthetic-v2.npz"
@@ -1798,7 +2161,7 @@ def main() -> int:
           f"cudnn {torch.backends.cudnn.version()} triton {triton_version}")
     print(sh([build.nvcc_path(), "--version"]).splitlines()[-1])
     found = {m: importlib.util.find_spec(m) is not None
-             for m in ("cv2", "yaml", "tensorboardX", "joblib")}
+             for m in ("cv2", "yaml", "scipy", "tensorboardX", "joblib", "face_recognition")}
     print("optional packages: " + ", ".join(f"{m} {'found' if ok else 'absent'}" for m, ok in found.items()))
     print(f"card: {card}; torch sees {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     torch.backends.cudnn.allow_tf32 = False
@@ -1819,7 +2182,13 @@ def main() -> int:
     # each kernel's launches on the lever paths, counted from 0 per config
     dequant_entry["lever_launches"] = levers["dequant_launches"]
     entry["lever_launches"] = levers["fused_launches"]
-    dequant_entry["max_abs_err"] = max(dequant_entry["max_abs_err"], levers["dequant_err"])
+    datasets = phase_datasets(card)
+    # each kernel's launches on the two dataset runs, each counted from 0
+    for entry_, kernel in ((entry, "fused"), (dequant_entry, "dequant")):
+        entry_["surreal_launches"] = datasets["runs"]["surreal-segm"][kernel]
+        entry_["isogd_launches"] = datasets["runs"]["isogd-flow"][kernel]
+    dequant_entry["max_abs_err"] = max(dequant_entry["max_abs_err"], levers["dequant_err"],
+                                       *(r["dequant_err"] for r in datasets["runs"].values()))
     if run["device_ms"] is not None:
         # the kernel's time on the main path: the step's one launch in the
         # train-step profile (else the isolated time of phase 3 stays)
@@ -1834,6 +2203,7 @@ def main() -> int:
     entry["http_launches"] = served["fused_launches"]
     # and its comparisons at each path's frame count
     entry["max_abs_err"] = max(entry["max_abs_err"], run["fused_err"], levers["fused_err"],
+                               *(r["fused_err"] for r in datasets["runs"].values()),
                                evaluation["fused_err"], inference["fused_err"], served["fused_err"])
 
     print(json.dumps({"kernels": [entry, dequant_entry]}))

@@ -25,7 +25,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
-from dcvgan_torch.data import host_ops
+from dcvgan_torch import native
 from dcvgan_torch.io.image import read_img
 
 PreprocessFunc = Callable[[Path, Path, str, int, int, int], None]
@@ -164,7 +164,7 @@ class VideoDataset:
         video = self._decode_frames("color", path, frames, n_frames, False)
         if self.raw_uint8:
             return video  # (T, H, W, 3) uint8; device dequantizes
-        return host_ops.normalize_u8(video, 127.5, -1.0)  # (T, H, W, 3)
+        return native.normalize_u8(video, 127.5, -1.0)  # (T, H, W, 3)
 
     def _read_geometry(self, path: Path, frames: range, n_frames: int) -> np.ndarray:
         gi = self.geometric_info
@@ -174,11 +174,11 @@ class VideoDataset:
             video = self._decode_frames(gi, path, frames, n_frames, True)
             if self.raw_uint8:
                 return video  # (T, H, W, 1) uint8; device dequantizes
-            return host_ops.normalize_u8(video, 127.5, -1.0)  # (T, H, W, 1)
+            return native.normalize_u8(video, 127.5, -1.0)  # (T, H, W, 1)
         if gi == "optical-flow":
             flow = np.load(str(path / (gi + ".npy")), mmap_mode="r")
             flow = np.asarray(flow[list(frames)], dtype=np.float32)
-            flow = host_ops.scale_f32(flow, 1.0 / self.image_size)  # (T, H, W, 2)
+            flow = native.scale_f32(flow, 1.0 / self.image_size)  # (T, H, W, 2)
             if self.raw_uint8:
                 # ship half precision: 2x less host->device transfer; the
                 # train step upcasts on device. Normalized flow is raw
@@ -197,7 +197,7 @@ class VideoDataset:
                 # ship class labels, not one-hot: 25x less host->device
                 # transfer; the train step one-hots on device
                 return segm[..., None]  # (T, H, W, 1) uint8
-            return host_ops.one_hot(segm, NUM_SEGM_PARTS)  # (T, H, W, 25)
+            return native.one_hot(segm, NUM_SEGM_PARTS)  # (T, H, W, 25)
         raise NotImplementedError(f"geometric_info {gi!r}")
 
     def _read_surreal_depth(self, path: Path, frames: range) -> np.ndarray:

@@ -1,7 +1,9 @@
 """Batch-assembly helpers on the host, in numpy.
 
-The numpy forms of ``dcvgan_tpu/native``'s three functions (all return
-float32 arrays); the JAX package's C++ library for them is not ported yet.
+The plain forms of ``dcvgan_torch.native``'s three functions (all return
+float32 arrays, equal bit for bit to the library's). The dataset and the
+trainer call the library; the tests and ``chip_smoke.py`` hold it against
+these.
 """
 
 from __future__ import annotations

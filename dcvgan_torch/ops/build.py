@@ -6,6 +6,9 @@ hash covers the source, the shared headers and the flags, so an edited
 source builds anew and an unchanged one is reused. Every source that is not
 built yet gets its own ``nvcc`` process, all started together. Nothing is
 built at import time: the first :func:`library` call builds what is missing.
+:func:`hashed_target`, :func:`start_build` and :func:`finish_build` are the
+steps of one build, shared with the host library (``dcvgan_torch/native``),
+which g++ compiles.
 """
 
 from __future__ import annotations
@@ -15,9 +18,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -45,13 +49,45 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def hashed_target(
+    name: str, sources: Iterable[Path], flags: Sequence[str], build_dir: Path = BUILD_DIR
+) -> Path:
+    """``build_dir/lib<name>-<hash>.so``, the hash over ``flags`` and the
+    content of ``sources``."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
+        h.update(Path(src).read_bytes())
+    return Path(build_dir) / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def start_build(compiler: Sequence[str], src: Path, out: Path) -> Tuple[subprocess.Popen, Path]:
+    """Start ``compiler -o <tmp> src``, writing beside ``out`` under a
+    temporary name; :func:`finish_build` moves it into place."""
+    Path(out).parent.mkdir(parents=True, exist_ok=True)
+    tmp = Path(out).with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.Popen(
+        [*compiler, "-o", str(tmp), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    return proc, tmp
+
+
+def finish_build(proc: subprocess.Popen, tmp: Path, out: Path) -> Optional[str]:
+    """Wait for a :func:`start_build`; on success rename its output to
+    ``out`` (atomic: a process loading it sees all of it or none) and return
+    None, else remove it and return the compiler's exit code and output."""
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        return f"{Path(proc.args[0]).name} exit {proc.returncode}:\n{log}"
+    os.replace(tmp, out)
+    return None
+
+
 def target(name: str) -> Path:
     """The library path for ``csrc/<name>.cu`` at its current content."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC_DIR / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
-        h.update(header.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    headers = sorted(CSRC_DIR.glob("*.cuh"))
+    return hashed_target(name, [CSRC_DIR / f"{name}.cu", *headers], NVCC_FLAGS)
 
 
 def build_all() -> Dict[str, float]:
@@ -60,7 +96,6 @@ def build_all() -> Dict[str, float]:
     Returns the seconds each compiled source took; raises with the compiler's
     output if any fails.
     """
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = {}
     for src in sorted(CSRC_DIR.glob("*.cu")):
         out = target(src.stem)
@@ -69,24 +104,15 @@ def build_all() -> Dict[str, float]:
     if not todo:
         return {}
     nvcc = nvcc_path()
-    procs = {}
     t0 = time.perf_counter()
-    for name, (src, out) in todo.items():
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        procs[name] = (proc, tmp, out)
+    procs = {name: (*start_build([nvcc, *NVCC_FLAGS], src, out), out)
+             for name, (src, out) in todo.items()}
     seconds, failures = {}, []
     for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
+        failed = finish_build(proc, tmp, out)
         seconds[name] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
-            tmp.unlink(missing_ok=True)
-            continue
-        os.replace(tmp, out)  # atomic: a process loading it sees all of it or none
+        if failed:
+            failures.append(f"{name}.cu: {failed}")
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return seconds

@@ -29,9 +29,8 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from dcvgan_torch import prng
+from dcvgan_torch import native, prng
 from dcvgan_torch.config import ExperimentConfig, flatten_config, save_config
-from dcvgan_torch.data import host_ops
 from dcvgan_torch.data.loader import VideoLoader
 from dcvgan_torch.eval.sampler import generate_samples
 from dcvgan_torch.logging.logger import Logger, MetricType
@@ -140,7 +139,7 @@ class Trainer:
             xg_raw = real[self.geometric_info][: rows * cols]
             if self.geometric_info == "segmentation" and xg_raw.dtype == np.uint8:
                 # raw class labels -> one-hot for the palette renderer
-                xg_raw = host_ops.one_hot(xg_raw[..., 0], NUM_SEGM_PARTS)
+                xg_raw = native.one_hot(xg_raw[..., 0], NUM_SEGM_PARTS)
             xg_real = geometric_info_in_color_format(
                 ensure_float_video(xg_raw), self.geometric_info
             )

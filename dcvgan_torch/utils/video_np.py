@@ -1,6 +1,6 @@
-"""Numpy video utilities for the sampler and the trainer's sample logging:
-the port's own copy of the helpers of ``dcvgan_tpu/utils/video_np.py`` that
-they need.
+"""Numpy video utilities for the sampler, the trainer's sample logging and
+the raw-dataset preprocessors: the port's own copy of the helpers of
+``dcvgan_tpu/utils/video_np.py``.
 
 Videos are channels-last ``(B, T, H, W, C)``.
 """
@@ -37,9 +37,22 @@ def make_video_grid(videos: np.ndarray, rows: int, cols: int) -> np.ndarray:
     return v[None]
 
 
+def calc_optical_flow(video: np.ndarray) -> np.ndarray:
+    """Farneback optical flow between consecutive frames: (T, H, W, 3) uint8
+    RGB -> (T-1, H, W, 2) float32."""
+    import cv2  # only the flow helpers need OpenCV
+
+    flows = []
+    for i in range(len(video) - 1):
+        f1 = cv2.cvtColor(video[i], cv2.COLOR_RGB2GRAY)
+        f2 = cv2.cvtColor(video[i + 1], cv2.COLOR_RGB2GRAY)
+        flows.append(cv2.calcOpticalFlowFarneback(f1, f2, None, 0.5, 3, 15, 3, 5, 1.2, 0))
+    return np.stack(flows)
+
+
 def visualize_optical_flow(flow_video: np.ndarray) -> np.ndarray:
     """(T, H, W, 2) flow -> (T, H, W, 3) uint8 RGB via the HSV wheel."""
-    import cv2  # only the optical-flow rendering needs OpenCV
+    import cv2  # only the flow helpers need OpenCV
 
     frames = []
     h, w = flow_video.shape[1:3]
@@ -88,6 +101,11 @@ _SEGM_PART_COLORS = np.array(
     ],
     dtype=np.float64,
 )
+
+
+def segm_color(i: int) -> np.ndarray:
+    """RGB colour (floats in [0, 1]) of segmentation part ``i``."""
+    return _SEGM_PART_COLORS[i]
 
 
 def geometric_info_in_color_format(xg: np.ndarray, geometric_info: str) -> np.ndarray:

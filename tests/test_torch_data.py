@@ -64,10 +64,16 @@ def test_preprocessors_write_the_same_files(trees):
 
 
 def test_registry_offers_the_ported_preprocessors_only():
-    for name in ("mock", "synthetic", "synthetic-large"):
-        assert callable(port_preprocessor(name))
+    """Every dataset name of the JAX package's registry (since the SURREAL
+    and IsoGD preprocessors and the MUG stub were ported), and no other."""
+    from dcvgan_torch.data import preprocess as port_registry
+    from dcvgan_tpu.data import preprocess as jax_registry
+
+    for name in ("mock", "synthetic", "synthetic-large", "surreal", "isogd", "mug"):
+        assert callable(port_preprocessor(name)) and callable(jax_preprocessor(name))
+    assert set(port_registry._REGISTRY) == set(jax_registry._REGISTRY)
     with pytest.raises(KeyError, match="no preprocessor"):
-        port_preprocessor("isogd")
+        port_preprocessor("kinetics")
 
 
 @pytest.mark.parametrize("raw_uint8", [True, False], ids=["uint8", "float"])

@@ -70,7 +70,27 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
    n=16 requests at two server shapes (64 x 1 round and 256 x 4 rounds a
    chunk); then ``cli.serve <run> -1 --sink mp4 --with-geo`` (128 + 128
    mp4s read back); counters set to 0 just before and read just after;
-12. a ``{"kernels": [...]}`` line, the card's line, and last
+12. the data-parallel path (``parallel/``), each run a ``torchrun`` of this
+    script's ``--child`` mode, which calls ``cli.train.main`` on every rank
+    and prints a ``CHILD {...}`` line of its counters and numbers: (a) world
+    1 over NCCL, the flagship for 12 steps with cuDNN held to deterministic
+    algorithms, its first 3 steps' losses equal bit for bit to the
+    single-process trainer's of the same seed, a rank-0 checkpoint that
+    restores equal; (b) two gloo ranks sharing ``cuda:0`` (global batch 20,
+    10 rows a rank): f32 with TF32 off for 3 steps against one rank at
+    batch 20 with the same global-batch BatchNorm arithmetic, cuDNN
+    deterministic on both (losses, the first step's gradients and the
+    updates within the stated tolerances; a per-rank-BatchNorm rank is the
+    control), per-replica statistics for 6 steps (both ranks' states hash equal), the
+    bf16 flagship's it/s over 18 steps (not a scaling number: two processes
+    share one card); (c) the f32 run's evaluation over both ranks (25 videos
+    a rank a round) against one rank's scores within 1e-4 rel + 1e-5; (d)
+    two serving replicas on ``cuda:0`` against one replica, bytes within
+    the stated bound. One ``dequantize_video`` launch a step on every rank;
+    ``fused_norm_act_conv`` only in rank 0's ``log_samples``, the
+    evaluation's rounds and the replicas (5 per cgen forward); both kernels
+    held at this path's shapes first (10 rows a rank; 400 and 2,048 frames);
+13. a ``{"kernels": [...]}`` line, the card's line, and last
     ``{"ok": true, "device": {...}}``.
 
 Every phase prints its numbers as it goes. Imports nothing of JAX.
@@ -2142,6 +2162,439 @@ def phase_http(run: dict, card: str) -> dict:
             "shapes": [s["record"] for s in shapes]}
 
 
+# ----------------------------------------------------------- data parallel
+# (a) world 1 over NCCL through torchrun: the flagship for 12 steps (4
+# epochs of 3 batches), cuDNN held to deterministic algorithms, its first 3
+# steps' losses against the single-process trainer of the same seed, bit
+# for bit. (b) two gloo ranks sharing cuda:0: global batch 20 (10 rows a
+# rank) in f32 with TF32 off for 3 steps against one rank at batch 20 with
+# the same global-batch BatchNorm arithmetic, per-replica statistics for 6
+# steps (both ranks' states hash equal), and the bf16 flagship's it/s over
+# 18 steps. (c) the f32 run's evaluation over both ranks against one rank's.
+# (d) two serving replicas on cuda:0.
+DP_NCCL_EPOCHS, DP_REPLAY_STEPS = 4, 3
+DP_TIMED_EPOCHS = 6
+# (b) two ranks against one rank that runs the same global-batch BatchNorm
+# arithmetic (s1, s2 sums through all_reduce_sum, DCVGAN.global_batch
+# forced, as tests/torch_dist_util.py does on the CPU), both with cuDNN held
+# to deterministic algorithms; a one-rank run with per-rank BatchNorm
+# (native_batch_norm) is printed beside them as a control. Only rounding
+# differs (the sums' order over two ranks of 10 rows against one of 20;
+# cuDNN's kernels at batch 10 and 20), but Adam's first step moves a
+# parameter by about lr whatever its gradient's size, so a gradient of
+# rounding noise steps either way, and the generators' gradients are taken
+# after the critics' first update. Held: the first step's losses within
+# JAX's cross-topology tolerance, 5e-4 relative (tests/test_multihost.py:253),
+# later steps' within 1e-2; by model, the first step's gradients (what each
+# optimizer receives after the all-reduce) and the updates of the 3 steps
+# (parameters less their init) by relative L2. These limits were set from
+# the readings of two measurement runs on an NVIDIA H100 80GB HBM3 at
+# 700.00 W, equal to the last digit (two ranks against one: losses 9.6e-7
+# at the first step, 1.6e-3 at the third; gradients 1.3e-6 to 1.1e-4 for
+# the critics, 2.3e-3 and 2.9e-3 for the generators; updates 0.015-0.033 and
+# 0.118-0.128), 2-10 times above them and below what a backward without the
+# all-reduce gives at ngf 8 on the CPU (gradients 0.24-0.50, updates
+# 0.49-0.81; tests/test_torch_data_parallel_lesion.py).
+DP_LOSS_RTOL, DP_LATER_LOSS_RTOL = 5e-4, 1e-2
+DP_GRAD_L2 = {"critics": 1e-3, "generators": 2e-2}
+DP_UPDATE_L2 = {"critics": 0.1, "generators": 0.3}
+# two serving replicas on one card against one replica: each samples its
+# half of the round at half the batch, where cuDNN may pick other
+# algorithms, so a bf16 output may round to a neighbouring value and a byte
+# move by a quantisation level (stated before the first run on the card)
+DP_SERVE_MAX_LEVELS, DP_SERVE_MAX_SHARE = 2, 1e-2
+
+
+def dp_config(run: dict, root: Path, name: str, epochs: int, precision: str = "bfloat16",
+              sync: bool = True, evaluation: bool = False) -> tuple:
+    """The train phase's config (mug-depth on its synthetic tree) as run
+    ``name`` under ``root``: ``(config, path of its YAML)``."""
+    from dcvgan_torch.config import load_config, save_config
+
+    base = run["trainer"].config
+    cfg = train_config(root)
+    cfg.dataset.path, cfg.dataset.processed_root = base.dataset.path, base.dataset.processed_root
+    cfg.experiment_name, cfg.n_epochs, cfg.log_interval = name, epochs, 1 if epochs < DP_TIMED_EPOCHS else LOG_EVERY
+    cfg.log_dir, cfg.tensorboard_dir = str(root / name / "result"), str(root / name / "runs")
+    cfg.trainer.precision, cfg.trainer.sync_batchnorm = precision, sync
+    if evaluation:
+        cfg.evaluation = load_config(ROOT / "configs" / "mug-depth.yml").evaluation
+        cfg.evaluation.extractor_weights = EVAL_WEIGHTS
+    path = root / f"{name}.yml"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    save_config(cfg, path)
+    return cfg, path
+
+
+def state_sha256(state) -> str:
+    """One hash of every model's parameters and statistics and the EMA."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, module in state.models.items():
+        for k, v in module.state_dict().items():
+            h.update(f"{name}.{k}".encode())
+            h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    for name, avg in (state.ema or {}).items():
+        for k in sorted(avg):
+            h.update(avg[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def child(spec_path: str) -> int:
+    """A rank that ``torchrun`` started: each run of the spec through
+    ``cli.train.main`` (which joins the group), the train step's losses and
+    the logger's values recorded, counters from 0 just before each run and
+    read just after; prints one ``CHILD {...}`` line a run. A run's
+    ``global_batch_norm`` forces the global-batch arithmetic in a world of
+    one rank; its ``grads`` names a file where rank 0 saves the first step's
+    reduced gradients and the parameters after it, flat f32 by model."""
+    import torch.distributed as dist
+
+    from dcvgan_torch import prng
+    from dcvgan_torch.cli import train as cli_train
+    from dcvgan_torch.logging.logger import Logger
+    from dcvgan_torch.ops.dequant import dequantize_video
+    from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+    from dcvgan_torch.train.step import DCVGAN
+    from dcvgan_torch.train.trainer import LOSS_NAMES
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    losses, seen, grads, step1 = [], {}, {}, {}
+    train_step, update, average = DCVGAN.train_step, Logger.update, DCVGAN._average
+    global_batch = DCVGAN.global_batch
+
+    def recording(self, *args, **kwargs):
+        state, m = train_step(self, *args, **kwargs)
+        losses.append(torch.stack([m[k] for k in LOSS_NAMES]))
+        if not step1:
+            with torch.no_grad():
+                step1.update({name: torch.cat([p.float().flatten() for p in module.parameters()]).cpu()
+                              for name, module in state.models.items()})
+        return state, m
+
+    def averaging(self, tensors, state, names):
+        average(self, tensors, state, names)
+        if names[0] in grads:
+            return
+        i = 0  # tensors: the models' gradients in order, then the losses
+        for name in names:
+            n = len(list(getattr(state, name).parameters()))
+            grads[name] = torch.cat([t.float().flatten() for t in tensors[i: i + n]]).cpu()
+            i += n
+
+    def keep(self, name, value):
+        seen.setdefault(name, []).append(value)
+        update(self, name, value)
+
+    DCVGAN.train_step, Logger.update, DCVGAN._average = recording, keep, averaging
+    for spec in json.loads(Path(spec_path).read_text()):
+        torch.backends.cudnn.deterministic = spec.get("deterministic", False)
+        if spec.get("global_batch_norm"):
+            DCVGAN.global_batch = property(lambda self: True)
+        losses.clear()
+        seen.clear()
+        grads.clear()
+        step1.clear()
+        torch.cuda.reset_peak_memory_stats()
+        fused_norm_act_conv.launches = 0
+        dequantize_video.launches = 0
+        # -- main path: counts from 0 --------------------------------------
+        t0 = time.perf_counter()
+        trainer = cli_train.main(spec["argv"])
+        torch.cuda.synchronize()
+        fused, dequant = fused_norm_act_conv.launches, dequantize_video.launches
+        # -- end of main path ------------------------------------------------
+        rec = {"run": spec["name"], "rank": rank, "world": trainer.layout.world,
+               "device": str(trainer.device), "steps": trainer.state.step, "train_s": time.perf_counter() - t0,
+               "dequant_launches": dequant, "fused_launches": fused,
+               "losses": torch.stack(losses).cpu().tolist(), "iters_per_sec": seen.get("iters_per_sec", []),
+               "state_sha256": state_sha256(trainer.state),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if rank == 0:
+            rec["restored_equal"] = check_restore(trainer, trainer.state, trainer.config)
+            if spec.get("grads"):
+                torch.save({"grads": grads, "step1": step1}, spec["grads"])
+        if spec.get("evaluate"):
+            fused_norm_act_conv.launches = 0
+            key = prng.named(prng.for_step(trainer.base_key, trainer.state.step), "eval")
+            # -- main path: counts from 0 ----------------------------------
+            rec["scores"] = trainer.evaluator.evaluate(trainer.gan, trainer.eval_state, key)
+            torch.cuda.synchronize()
+            rec["eval_fused_launches"] = fused_norm_act_conv.launches
+            # -- end of main path --------------------------------------------
+        torch.backends.cudnn.deterministic = False
+        DCVGAN.global_batch = global_batch
+        print("CHILD " + json.dumps(rec), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def torchrun(nproc: int, specs: list, root: Path, label: str, timeout: float = 600.0) -> dict:
+    """``torchrun --standalone --nproc_per_node nproc chip_smoke.py --child``
+    of ``specs``; returns ``{run name: [record of rank 0, rank 1, ...]}``. The
+    whole process group is killed if it outlives ``timeout``."""
+    import signal
+
+    spec = root / f"{label}.json"
+    spec.write_text(json.dumps(specs))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), str(ROOT / "chip_smoke.py"), "--child", str(spec)]
+    print("launch: torchrun " + " ".join(cmd[3:]), flush=True)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            cwd=ROOT, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    log = root / f"{label}.log"
+    log.write_text(out)
+    if proc.returncode != 0:
+        print(out[-8000:], flush=True)
+        raise AssertionError(f"torchrun {label} exited {proc.returncode}")
+    records: dict = {}
+    for line in out.splitlines():
+        if line.startswith("CHILD "):
+            rec = json.loads(line[len("CHILD "):])
+            records.setdefault(rec["run"], [None] * nproc)[rec["rank"]] = rec
+    for s in specs:
+        if s["name"] not in records or None in records[s["name"]]:
+            raise AssertionError(f"torchrun {label}: run {s['name']} printed no record on some rank")
+    return records
+
+
+def check_dp_run(recs: list, cfg, path: str) -> None:
+    """Each rank ran the config's steps, finite losses, first critic losses
+    near 2 ln 2, one dequant launch a step on every rank, fused launches
+    only in log_samples on rank 0 (step 0 and the end) and, where the config
+    evaluates, in the step-0 evaluation's rounds on every rank, every rank's
+    state equal, rank 0's checkpoint restores equal tensors."""
+    rounds = 0
+    if cfg.evaluation.metrics:
+        rounds = -(-cfg.evaluation.num_samples // cfg.evaluation.batchsize)
+    steps = cfg.n_epochs * (64 // cfg.batchsize)
+    for r in recs:
+        if r["steps"] != steps or r["dequant_launches"] != steps or len(r["losses"]) != steps:
+            raise AssertionError(f"{path} rank {r['rank']}: {r['steps']} steps, {r['dequant_launches']} "
+                                 f"dequant launches, {len(r['losses'])} losses; expected {steps}")
+        if not all(math.isfinite(x) for row in r["losses"] for x in row):
+            raise AssertionError(f"{path} rank {r['rank']}: a loss is not finite")
+        first = r["losses"][0][1:]  # loss_gen first, then the critics
+        if any(abs(x - 2 * math.log(2)) > 0.2 for x in first):
+            raise AssertionError(f"{path}: first critic losses {first} not within 0.2 of 2 ln 2")
+        want = 5 * rounds + (5 * 2 if r["rank"] == 0 else 0)
+        if r["fused_launches"] != want:
+            raise AssertionError(f"{path} rank {r['rank']}: {r['fused_launches']} fused launches, "
+                                 f"expected {want}")
+    if len({r["state_sha256"] for r in recs}) != 1:
+        raise AssertionError(f"{path}: the ranks' states differ")
+    if recs[0].get("restored_equal", 0) <= 0:
+        raise AssertionError(f"{path}: rank 0's checkpoint did not restore")
+    print(f"{path}: {len(recs)} rank(s) x {steps} steps, dequant launches "
+          f"{[r['dequant_launches'] for r in recs]}, fused launches {[r['fused_launches'] for r in recs]}, "
+          f"states equal (sha256 {recs[0]['state_sha256'][:16]}), first step "
+          f"{dict(zip(('loss_gen', 'loss_idis', 'loss_vdis', 'loss_gdis'), recs[0]['losses'][0]))}",
+          flush=True)
+
+
+def one_process_run(cfg, steps: int) -> tuple:
+    """The flagship's single-process trainer on ``cfg`` in this process:
+    ``(losses a step, trainer)``."""
+    from dcvgan_torch.cli.train import build_dataset
+    from dcvgan_torch.train.trainer import LOSS_NAMES, Trainer
+
+    run_dir = Path(cfg.log_dir) / cfg.experiment_name
+    logger = recorder(run_dir)
+    trainer = Trainer(cfg, build_dataset(cfg), logger=logger)
+    trainer.train()
+    torch.cuda.synchronize()
+    losses = [[logger.seen[k][i] for k in LOSS_NAMES] for i in range(steps)]
+    return losses, trainer
+
+
+def phase_data_parallel(run: dict, card: str) -> dict:
+    """The data-parallel path (module docstring, phase 12)."""
+    from dcvgan_torch import prng
+    from dcvgan_torch.cli.infer import load_run
+    from dcvgan_torch.cli.serve import GenerationServer
+    from dcvgan_torch.cli.train import build_evaluator
+    from dcvgan_torch.data.loader import VideoLoader
+    from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+    from dcvgan_torch.train.checkpoint import CheckpointManager
+    from dcvgan_torch.train.step import DCVGAN
+
+    root = Path(run["tmp"].name) / "dp"
+    base = run["trainer"].config
+    # both kernels at this path's shapes first: a rank's batch of 10 rows,
+    # log_samples' and a rank's evaluation round (25 videos, 400 frames),
+    # a serving replica's half of 256 (2,048 frames)
+    with VideoLoader(run["dataset"], base.batchsize, n_workers=2, seed=1, process_index=1,
+                     process_count=2, shard_divisor=2) as loader:
+        rank_batch = {k: torch.from_numpy(v).cuda() for k, v in loader.fetch_batch(0).items()}
+    if rank_batch["color"].shape[0] != base.batchsize // 2:
+        raise AssertionError("the loader's rank slice is not half the global batch")
+    dequant_err = check_dequant_batch(rank_batch, "data-parallel rank batch")
+    fused_err = max(check_sites(25 * base.video_length, "data-parallel log_samples / eval rank round",
+                                cgen_sites(base)),
+                    check_sites(128 * base.video_length, "serving replica", cgen_sites(base)))
+
+    # (a) world 1 over NCCL, then the single-process trainer; in the same
+    # launch, (b)'s references: one rank with the global-batch arithmetic,
+    # and one with per-rank BatchNorm (native_batch_norm) as a control
+    cfg_a, path_a = dp_config(run, root, "dp-nccl", DP_NCCL_EPOCHS)
+    cfg_r, path_r = dp_config(run, root, "dp-sync-f32-one", 1, precision="float32")
+    cfg_c, path_c = dp_config(run, root, "dp-native-f32-one", 1, precision="float32")
+    nccl = ["--dist-backend", "nccl"]
+    recs_a = torchrun(1, [
+        {"name": "nccl", "deterministic": True, "argv": ["--config", str(path_a)] + nccl},
+        {"name": "ref", "deterministic": True, "global_batch_norm": True, "grads": str(root / "dp-sync-f32-one.pt"),
+         "argv": ["--config", str(path_r)] + nccl},
+        {"name": "control", "deterministic": True, "grads": str(root / "dp-native-f32-one.pt"),
+         "argv": ["--config", str(path_c)] + nccl},
+    ], root, "nccl")
+    check_dp_run(recs_a["nccl"], cfg_a, "torchrun world 1 nccl")
+    check_dp_run(recs_a["ref"], cfg_r, "torchrun world 1 nccl, f32, global-batch BatchNorm arithmetic")
+    check_dp_run(recs_a["control"], cfg_c, "torchrun world 1 nccl, f32, per-rank BatchNorm")
+    cfg_1, _ = dp_config(run, root, "dp-single", 1)
+    torch.backends.cudnn.deterministic = True
+    single, _ = one_process_run(cfg_1, DP_REPLAY_STEPS)
+    torch.backends.cudnn.deterministic = False
+    replay = recs_a["nccl"][0]["losses"][:DP_REPLAY_STEPS]
+    print(f"torchrun world 1 against the single-process trainer, first {DP_REPLAY_STEPS} steps, "
+          f"deterministic cuDNN: equal bits {replay == single}; max |diff| "
+          f"{max(abs(a - b) for ra, rb in zip(replay, single) for a, b in zip(ra, rb)):.3e}", flush=True)
+    if replay != single:
+        raise AssertionError("torchrun world 1 and the single-process trainer differ")
+
+    # (b) + (c): two gloo ranks sharing cuda:0
+    cfg_s, path_s = dp_config(run, root, "dp-sync-f32", 1, precision="float32", evaluation=True)
+    cfg_p, path_p = dp_config(run, root, "dp-replica", 2, sync=False)
+    cfg_t, path_t = dp_config(run, root, "dp-timed", DP_TIMED_EPOCHS)
+    gloo = ["--dist-backend", "gloo", "--device", "cuda:0"]
+    recs = torchrun(2, [
+        {"name": "sync", "deterministic": True, "grads": str(root / "dp-sync-f32.pt"),
+         "argv": ["--config", str(path_s)] + gloo, "evaluate": True},
+        {"name": "replica", "argv": ["--config", str(path_p)] + gloo},
+        {"name": "timed", "argv": ["--config", str(path_t)] + gloo},
+    ], root, "gloo")
+    check_dp_run(recs["sync"], cfg_s, "2 gloo ranks on cuda:0, f32 global batch")
+    check_dp_run(recs["replica"], cfg_p, "2 gloo ranks on cuda:0, per-replica statistics")
+    check_dp_run(recs["timed"], cfg_t, "2 gloo ranks on cuda:0, bf16 flagship")
+    if [r["world"] for r in recs["sync"]] != [2, 2] or {r["device"] for r in recs["sync"]} != {"cuda:0"}:
+        raise AssertionError("the gloo ranks are not 2 on cuda:0")
+
+    init = DCVGAN(cfg_s).init_state(cfg_s.seed)
+    with torch.no_grad():
+        p0 = {m: torch.cat([p.flatten() for p in init.models[m].parameters()]).cpu() for m in init.models}
+    runs = {"two": (recs["sync"][0], "dp-sync-f32"), "ref": (recs_a["ref"][0], "dp-sync-f32-one"),
+            "control": (recs_a["control"][0], "dp-native-f32-one")}
+    seen: dict = {}
+    for key, (rec, name) in runs.items():
+        saved = torch.load(root / f"{name}.pt")
+        state = CheckpointManager(root / name / "result" / name / "models").restore(
+            DCVGAN(cfg_s).init_state(cfg_s.seed + 1))
+        with torch.no_grad():
+            moved = {m: torch.cat([p.flatten() for p in state.models[m].parameters()]).cpu() - p0[m]
+                     for m in p0}
+        seen[key] = {"losses": rec["losses"], "grads": saved["grads"], "state": state, "moved": moved,
+                     "first": {m: saved["step1"][m] - p0[m] for m in p0}}
+
+    def compare(a: str, b: str) -> dict:
+        x, y = seen[a], seen[b]
+        return {"loss_rel_by_step": [max(abs(u - v) / abs(v) for u, v in zip(ra, rb))
+                                     for ra, rb in zip(x["losses"], y["losses"])],
+                "first_step_grads_rel_l2": rel_l2(x["grads"], y["grads"]),
+                "first_step_updates_rel_l2": rel_l2(x["first"], y["first"]),
+                "updates_rel_l2": rel_l2(x["moved"], y["moved"])}
+
+    def rounded(d: dict) -> str:
+        return json.dumps({k: ([float(f"{x:.3e}") for x in v] if isinstance(v, list)
+                               else {m: float(f"{x:.3e}") for m, x in v.items()}) for k, v in d.items()})
+
+    held = compare("two", "ref")
+    print(f"2 gloo ranks against one rank with the same global-batch BatchNorm arithmetic, f32 at global "
+          f"batch 20, {len(seen['two']['losses'])} steps, deterministic cuDNN on both: {rounded(held)} "
+          f"(held at: losses {DP_LOSS_RTOL:g} relative at the first step, {DP_LATER_LOSS_RTOL:g} later; "
+          f"relative L2 by model: the first step's gradients {json.dumps(DP_GRAD_L2)}, the updates of "
+          f"all steps {json.dumps(DP_UPDATE_L2)})", flush=True)
+    print(f"control, one rank with per-rank BatchNorm (native_batch_norm) against the same one rank: "
+          f"{rounded(compare('control', 'ref'))}; 2 gloo ranks against it: {rounded(compare('two', 'control'))}",
+          flush=True)
+    roles = {m: "critics" if m in ("idis", "vdis", "gdis") else "generators" for m in p0}
+    if (held["loss_rel_by_step"][0] > DP_LOSS_RTOL or max(held["loss_rel_by_step"]) > DP_LATER_LOSS_RTOL
+            or any(v > DP_GRAD_L2[roles[m]] for m, v in held["first_step_grads_rel_l2"].items())
+            or any(v > DP_UPDATE_L2[roles[m]] for m, v in held["updates_rel_l2"].items())):
+        raise AssertionError("2 gloo ranks and one rank disagree beyond the stated tolerance")
+    loss_rel = max(held["loss_rel_by_step"])
+    two_state = seen["two"]["state"]
+
+    # (c) the f32 run's evaluation over the ranks against one rank's
+    evaluator = build_evaluator(cfg_s, run["dataset"])
+    key = prng.named(prng.for_step(prng.base_key(cfg_s.seed, "cuda"), two_state.step), "eval")
+    eval_state = two_state.with_ema_params() if cfg_s.trainer.ema_eval else two_state
+    want = evaluator.evaluate(DCVGAN(cfg_s), eval_state, key)
+    rounds = -(-cfg_s.evaluation.num_samples // cfg_s.evaluation.batchsize)
+    for r in recs["sync"]:
+        got = r["scores"]
+        if r["eval_fused_launches"] != 5 * rounds:
+            raise AssertionError(f"rank {r['rank']}: {r['eval_fused_launches']} fused launches in "
+                                 f"{rounds} evaluation rounds, expected {5 * rounds}")
+        for m, v in want.items():
+            if not math.isclose(got[m], v, rel_tol=EVAL_RTOL, abs_tol=EVAL_ATOL):
+                raise AssertionError(f"{m} over 2 ranks {got[m]} against one rank {v}")
+    print(f"evaluation over 2 gloo ranks ({cfg_s.evaluation.batchsize // 2} videos a rank a round): "
+          f"{json.dumps(recs['sync'][0]['scores'])} against one rank {json.dumps(want)}; fused launches "
+          f"{[r['eval_fused_launches'] for r in recs['sync']]}", flush=True)
+
+    windows = recs["timed"][0]["iters_per_sec"]
+    it_s = statistics.median(windows[1:])
+    print(f"bf16 flagship, 2 gloo ranks sharing one card, global batch 20: {it_s:.3f} it/s (median of "
+          f"{len(windows) - 1} windows of {LOG_EVERY} steps after the first; all {[round(w, 3) for w in windows]}) "
+          f"on {card}; not a scaling number: two processes share one card; peak "
+          f"{[round(r['peak_gb'], 2) for r in recs['timed']]} GB", flush=True)
+
+    # (d) two serving replicas on cuda:0 against one
+    _, gan, trained = load_run(run["trainer"].run_dir, -1)
+    state = trained.generators().with_ema_params()
+    one_server = GenerationServer(gan, state, batchsize=256, iters_per_chunk=1)
+    two_server = GenerationServer(gan, state, batchsize=256, iters_per_chunk=1, mesh=["cuda:0", "cuda:0"])
+    want_geo, want_color = one_server.generate(512, seed=3, with_geo=True)
+    fused_norm_act_conv.launches = 0
+    # -- main path: counts from 0 --------------------------------------------
+    got_geo, got_color = two_server.generate(512, seed=3, with_geo=True)
+    torch.cuda.synchronize()
+    serve_fused = fused_norm_act_conv.launches
+    # -- end of main path ------------------------------------------------------
+    one_server.close()
+    two_server.close()
+    diffs = {}
+    for label, got, want_ in (("color", got_color, want_color), ("geo", got_geo, want_geo)):
+        d = np.abs(got.astype(np.int16) - want_.astype(np.int16))
+        diffs[label] = {"max": int(d.max()), "share": float((d > 0).mean())}
+    print(f"2 serving replicas on cuda:0 against one, 512 videos at B=256 (128 a replica): bytes "
+          f"{json.dumps(diffs)}; fused launches {serve_fused} (5 per cgen forward, 2 rounds x 2 replicas)",
+          flush=True)
+    if serve_fused != 5 * 2 * 2:
+        raise AssertionError(f"expected 20 fused launches from the replicas, counted {serve_fused}")
+    if any(v["max"] > DP_SERVE_MAX_LEVELS or v["share"] > DP_SERVE_MAX_SHARE for v in diffs.values()):
+        raise AssertionError("the replicas' bytes differ from one replica's beyond the stated bound")
+
+    return {
+        "fused_err": fused_err, "dequant_err": dequant_err,
+        "fused_launches": {"nccl": recs_a["nccl"][0]["fused_launches"],
+                           **{k: [r["fused_launches"] for r in v] for k, v in recs.items()},
+                           "eval": [r["eval_fused_launches"] for r in recs["sync"]], "serve": serve_fused},
+        "dequant_launches": {"nccl": recs_a["nccl"][0]["dequant_launches"],
+                             **{k: [r["dequant_launches"] for r in v] for k, v in recs.items()}},
+        "it_s": it_s, "loss_rel": loss_rel, "serve_bytes": diffs,
+    }
+
+
+
 def np_equal(a, b) -> bool:
     return a.shape == b.shape and bool((a == b).all())
 
@@ -2150,6 +2603,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--child"]:
+        return child(sys.argv[2])
     from dcvgan_torch.ops import build
 
     card = card_line()
@@ -2196,15 +2651,21 @@ def main() -> int:
     evaluation = phase_eval(run)
     inference = phase_infer(run, evaluation["fingerprint"])
     served = phase_http(run, card)
+    parallel = phase_data_parallel(run, card)
     run["tmp"].cleanup()
     # the fused kernel's launches on the later paths, each counted from 0
     entry["eval_launches"] = evaluation["fused_launches"]
     entry["infer_launches"] = inference["fused_launches"]
     entry["http_launches"] = served["fused_launches"]
+    # each kernel's launches on the data-parallel paths, per run and rank
+    entry["data_parallel_launches"] = parallel["fused_launches"]
+    dequant_entry["data_parallel_launches"] = parallel["dequant_launches"]
+    dequant_entry["max_abs_err"] = max(dequant_entry["max_abs_err"], parallel["dequant_err"])
     # and its comparisons at each path's frame count
     entry["max_abs_err"] = max(entry["max_abs_err"], run["fused_err"], levers["fused_err"],
                                *(r["fused_err"] for r in datasets["runs"].values()),
-                               evaluation["fused_err"], inference["fused_err"], served["fused_err"])
+                               evaluation["fused_err"], inference["fused_err"], served["fused_err"],
+                               parallel["fused_err"])
 
     print(json.dumps({"kernels": [entry, dequant_entry]}))
     print(card_line())

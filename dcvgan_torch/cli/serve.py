@@ -57,11 +57,22 @@ above ``--max-request-videos`` a request gets 413, and beyond
 
 An explicit seed replays the same bytes, within the port and on one device
 type; bytes differ from the JAX package's, whose random streams differ.
+
+``--mesh N`` (``mesh=`` a list of devices in the API) serves from one
+replica of the generators on each of N devices (``cuda:0`` .. ``cuda:N-1``,
+or N CPU replicas with ``--device cpu``; -1: every card): each round's
+seeded latents are drawn once, their rows split N ways, each replica
+samples its rows with no collective, and the videos are assembled in
+order. JAX's ``make_chunk_fn(mesh=...)`` says its bytes equal the unsharded
+chunk's bit for bit; here a replica's convolutions run at batch B/N, for
+which cuDNN may pick other algorithms, so a byte may differ by the rounding
+of the last quantisation step (the tests hold that bound).
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import io
 import json
 import threading
@@ -71,7 +82,7 @@ from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 from queue import SimpleQueue
-from typing import Iterator, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
@@ -83,6 +94,7 @@ from dcvgan_torch.config import load_config
 from dcvgan_torch.io.video import write_videos_parallel
 from dcvgan_torch.train.step import DCVGAN
 from dcvgan_torch.train.state import GeneratorState
+from dcvgan_torch.utils.device import resolve_device
 from dcvgan_torch.utils.video_np import geometric_info_in_color_format
 
 
@@ -92,21 +104,58 @@ def quantize(x: torch.Tensor) -> torch.Tensor:
     return ((x.clamp(-1.0, 1.0) + 1.0) * 127.5).to(torch.uint8)
 
 
-def make_chunk_fn(gan: DCVGAN, batchsize: int, iters: int):
+def place_replicas(state: GeneratorState, mesh: Sequence) -> List[GeneratorState]:
+    """A copy of the serving generators (and their EMA) on each device of
+    ``mesh``, a non-empty list of devices (one may appear more than once)."""
+    if not isinstance(mesh, (list, tuple)) or not mesh:
+        raise TypeError(f"mesh must be a non-empty list of devices, got {mesh!r}")
+    out = []
+    for device in mesh:
+        dev = resolve_device(device)
+        ema = None
+        if state.ema is not None:
+            ema = {n: {k: v.to(dev) for k, v in avg.items()} for n, avg in state.ema.items()}
+        out.append(GeneratorState(copy.deepcopy(state.ggen).to(dev),
+                                  copy.deepcopy(state.cgen).to(dev), ema))
+    return out
+
+
+def make_chunk_fn(gan: DCVGAN, batchsize: int, iters: int, mesh: Optional[Sequence] = None):
     """One serving chunk: ``iters`` sampling rounds on the device.
 
     ``chunk_fn(state, gen)`` returns ``(checksum, xg_u8, xc_u8)``: the videos
     are ``(iters, B, T, H, W, C)`` uint8 and the checksum is an int64 sum of
     every quantized pixel (take it mod 2**32). Round i draws from
     ``prng.for_step(gen, i)``.
-    """
 
-    def chunk_fn(state: GeneratorState, gen: torch.Generator):
+    With ``mesh`` (a list of N devices) ``state`` is ``place_replicas``'s
+    list: round i's latents are drawn on ``gan``'s device, replica r samples
+    rows ``r*B/N .. (r+1)*B/N`` on its device, and the rows come back to
+    ``gan``'s device in order.
+    """
+    if mesh is None:
+        def sample(state, key):
+            return gan.sample_videos(state, key, batchsize)
+    else:
+        if batchsize % len(mesh):
+            raise ValueError(f"batchsize {batchsize} not divisible by the {len(mesh)} replicas")
+        local = batchsize // len(mesh)
+        bundles = [DCVGAN(gan.config, device=d) for d in mesh]
+
+        def sample(states, key):
+            latents = gan.sample_latents(key, batchsize)
+            parts = []
+            for r, (bundle, state) in enumerate(zip(bundles, states)):
+                rows = type(latents)(*(t[r * local:(r + 1) * local] for t in latents))
+                parts.append(bundle.sample_videos(state, None, local, latents=rows))
+            return tuple(torch.cat([p[j].to(gan.device) for p in parts]) for j in (0, 1))
+
+    def chunk_fn(state, gen: torch.Generator):
         with torch.inference_mode():
             total = torch.zeros((), dtype=torch.int64, device=gan.device)
             xgs, xcs = [], []
             for i in range(iters):
-                xg, xc = gan.sample_videos(state, prng.for_step(gen, i), batchsize)
+                xg, xc = sample(state, prng.for_step(gen, i))
                 xg_u8, xc_u8 = quantize(xg), quantize(xc)
                 total += xc_u8.sum(dtype=torch.int64) + xg_u8.sum(dtype=torch.int64)
                 xgs.append(xg_u8)
@@ -114,6 +163,11 @@ def make_chunk_fn(gan: DCVGAN, batchsize: int, iters: int):
             return total, torch.stack(xgs), torch.stack(xcs)
 
     return chunk_fn
+
+
+def chips(mesh: Optional[Sequence]) -> int:
+    """The distinct devices a mesh occupies (1 without one)."""
+    return 1 if mesh is None else len({str(resolve_device(d)) for d in mesh})
 
 
 class InFlight:
@@ -227,10 +281,15 @@ def serve(
     sink: Sink,
     seed: int = 0,
     queue_depth: int = 2,
+    mesh: Optional[Sequence] = None,
 ) -> dict:
-    """Run the double-buffered serving loop; return the stats record."""
+    """Run the double-buffered serving loop; return the stats record. With
+    ``mesh``, every chunk is split over one replica per device; the rate is
+    per distinct device."""
     queue_depth = max(1, queue_depth)
-    chunk_fn = make_chunk_fn(gan, batchsize, iters_per_chunk)
+    if mesh is not None:
+        state = place_replicas(state, mesh)
+    chunk_fn = make_chunk_fn(gan, batchsize, iters_per_chunk, mesh)
     copy_stream = _copy_stream(gan)
     key = prng.base_key(seed, gan.device)
 
@@ -264,9 +323,10 @@ def serve(
     total_dt = time.perf_counter() - t0
 
     n_videos = batchsize * iters_per_chunk * chunks
+    n_chips = chips(mesh)
     return {
         "metric": "serve_videos_per_sec_per_chip",
-        "value": round(n_videos / gen_dt, 2),
+        "value": round(n_videos / gen_dt / n_chips, 2),
         "unit": "videos/s",
         "sink": sink.kind,
         "videos": n_videos,
@@ -282,7 +342,8 @@ def serve(
             round(delivered_bytes / 1e6 / total_dt, 2) if delivered_bytes else None
         ),
         "checksum": checksum,
-        "n_chips": 1,
+        "n_chips": n_chips,
+        "replicas": 1 if mesh is None else len(mesh),
         "device": device_name(gan.device),
     }
 
@@ -294,7 +355,8 @@ class GenerationServer:
     before fetching chunk k); dispatch is serialised under a lock, since one
     device has one compute stream here, while the host side of a fetch runs
     outside it. Counters, admission slots and the micro-batcher are the JAX
-    server's.
+    server's. ``mesh``, a list of devices, splits every chunk over one
+    replica per device (``make_chunk_fn``).
     """
 
     def __init__(
@@ -310,17 +372,16 @@ class GenerationServer:
         max_concurrent: int = 4,
         batch_window_ms: float = 5.0,
     ):
-        if mesh is not None:
-            raise NotImplementedError("serving over a mesh is not ported yet (ROADMAP A12)")
         self.gan = gan
-        self.state = state
+        self.state = state if mesh is None else place_replicas(state, mesh)
+        self.mesh = mesh
         self.batchsize = batchsize
         self.iters = iters_per_chunk
         self.geo_name = geo_name
         self.queue_depth = max(1, queue_depth)
         self.max_request_videos = max_request_videos
         self._admission = threading.BoundedSemaphore(max(1, max_concurrent))
-        self.chunk_fn = make_chunk_fn(gan, batchsize, iters_per_chunk)
+        self.chunk_fn = make_chunk_fn(gan, batchsize, iters_per_chunk, mesh)
         self._copy_stream = _copy_stream(gan)
         self._lock = threading.Lock()  # device dispatch order
         self._counter_lock = threading.Lock()
@@ -393,7 +454,7 @@ class GenerationServer:
         return {
             "status": "ok",
             "device": device_name(self.gan.device),
-            "n_chips": 1,
+            "n_chips": chips(self.mesh),
             "batchsize": self.batchsize,
             "iters_per_chunk": self.iters,
             "geometric_info": self.geo_name,
@@ -692,6 +753,26 @@ def serve_http(gen: GenerationServer, port: int) -> ThreadingHTTPServer:
     return ThreadingHTTPServer(("", port), handler)
 
 
+def replica_devices(n: int, device: Optional[str]) -> Optional[List[str]]:
+    """``--mesh n`` as a list of devices: None for 1, ``cuda:0`` ..
+    ``cuda:n-1`` (every card for -1), or n CPU replicas with ``--device
+    cpu``."""
+    if n == 1:
+        return None
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if n == -1:
+        if cpu:
+            raise ValueError("--mesh -1 takes every card; give a count with --device cpu")
+        n = torch.cuda.device_count()
+    if n < 1:
+        raise ValueError(f"--mesh {n}: give a positive count or -1")
+    if cpu:
+        return ["cpu"] * n
+    if n > torch.cuda.device_count():
+        raise ValueError(f"--mesh {n} exceeds the {torch.cuda.device_count()} visible cards")
+    return [f"cuda:{i}" for i in range(n)]
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("result_dir", type=Path, nargs="?", help="a run directory of the port")
@@ -719,7 +800,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
                         help="micro-batching window: how long an unseeded request waits "
                         "for concurrent arrivals to share its device chunk")
     parser.add_argument("--mesh", type=int, default=1, metavar="N",
-                        help="devices to shard each chunk over; only 1 is ported (ROADMAP A12)")
+                        help="replicas to split each chunk over, one per device: cuda:0..N-1, "
+                        "or N CPU replicas with --device cpu; -1: every card")
     parser.add_argument("--no-ema", action="store_true",
                         help="serve the live generator params even when the weights carry an EMA")
     parser.add_argument("--device", default=None,
@@ -733,9 +815,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
         parser.error("--weights goes with --config")
     if args.sink != "null" and args.out is None:
         parser.error(f"--sink {args.sink} requires --out DIR")
-    if args.mesh != 1:
-        raise NotImplementedError(f"--mesh {args.mesh}: serving over a mesh is not ported yet "
-                                  "(ROADMAP A12)")
+    mesh = replica_devices(args.mesh, args.device)
 
     if args.config is not None:
         cfg = load_config(args.config)
@@ -759,6 +839,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
             max_request_videos=args.max_request_videos,
             max_concurrent=args.max_concurrent,
             batch_window_ms=args.batch_window_ms,
+            mesh=mesh,
         )
         httpd = serve_http(gen, args.listen)
         print(json.dumps({"listening": httpd.server_address[1], **gen.info()}), flush=True)
@@ -778,6 +859,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
         sink,
         seed=args.seed,
         queue_depth=args.queue_depth,
+        mesh=mesh,
     )
     print(json.dumps(stats))
     return stats

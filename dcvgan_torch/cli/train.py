@@ -3,11 +3,18 @@
 Usage::
 
     python -m dcvgan_torch.cli.train --config configs/mug-depth.yml [--device cuda]
+    torchrun --nproc_per_node N -m dcvgan_torch.cli.train --config configs/mug-depth.yml \
+        [--dist-backend nccl|gloo]
 
-Counterpart of ``dcvgan_tpu/cli/train.py`` on one GPU. Runs on ``cuda``
-unless ``--device cpu`` is given. When the config lists
-``evaluation.metrics``, the trainer scores them at step 0 and every
-``evaluation_interval`` steps against the training dataset.
+Counterpart of ``dcvgan_tpu/cli/train.py``. Runs on ``cuda`` unless
+``--device cpu`` is given. Under ``torchrun`` it first joins the process
+group the launcher describes (``parallel.init_distributed``: NCCL, one
+card per rank, ``cuda:{LOCAL_RANK}``; ``--dist-backend gloo`` with
+``--device`` puts every rank on that device) and trains data-parallel over
+the ranks, ``mesh`` and ``trainer.sync_batchnorm`` as the config sets them.
+When the config lists ``evaluation.metrics``, the trainer scores them at
+step 0 and every ``evaluation_interval`` steps against the training
+dataset.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import Optional, Sequence
 from dcvgan_torch.config import load_config
 from dcvgan_torch.data.dataset import VideoDataset
 from dcvgan_torch.data.preprocess import get_preprocessor
+from dcvgan_torch.parallel.mesh import first_rank_first, init_distributed
 from dcvgan_torch.train.trainer import Trainer
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
@@ -88,12 +96,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     parser.add_argument(
         "--device", default=None, help="torch device (default cuda; 'cpu' runs on the CPU)"
     )
+    parser.add_argument(
+        "--dist-backend", choices=["nccl", "gloo"], default=None,
+        help="under torchrun: the process group's backend (default nccl)",
+    )
     args = parser.parse_args(argv)
 
+    device = init_distributed(args.dist_backend, args.device) or args.device
     cfg = load_config(args.config)
-    dataset = build_dataset(cfg)
-    evaluator = build_evaluator(cfg, dataset, device=args.device)
-    trainer = Trainer(cfg, dataset, evaluator=evaluator, device=args.device)
+    dataset = first_rank_first(lambda: build_dataset(cfg))
+    evaluator = build_evaluator(cfg, dataset, device=device)
+    trainer = Trainer(cfg, dataset, evaluator=evaluator, device=device)
     trainer.train()
     return trainer
 

@@ -10,9 +10,10 @@ dropped; any other unknown key raises, as the JAX loader raises.
 
 The opt-in levers (``shared_fakes``, ``critic_joint_batch``,
 ``critic_stat_reuse``, ``remat``, ``ggen_double_step``, ``norm: group``)
-load here and run in the train step. The multi-device layouts
-(``sync_batchnorm: false``, a mesh beyond one device) load too; the train
-step raises ``NotImplementedError`` naming the key when one is set.
+load here and run in the train step, as do the data-parallel layouts
+(``sync_batchnorm``, ``mesh.data``, ``mesh.dcn``; ``parallel/mesh.py``).
+Only ``mesh.time > 1`` loads and is refused: the train step raises
+``NotImplementedError`` for it.
 """
 
 from __future__ import annotations
@@ -163,8 +164,10 @@ class EvaluationConfig:
 
 @dataclass
 class MeshConfig:
-    """Device layout of the JAX package; the port runs ``data`` in (-1, 1),
-    ``time`` 1 and ``dcn`` 1, and the train step refuses anything else."""
+    """The batch-parallel layout over the ranks of a process group
+    (``parallel.create_layout``): ``data`` ranks (-1: all of them, shrunk to
+    a divisor of the batch) times an outer ``dcn`` factor. ``time > 1``
+    (time-sharded critics) is not ported and the train step refuses it."""
 
     data: int = -1
     time: int = 1
@@ -180,8 +183,8 @@ class TrainerConfig:
     # compute dtype of the forward and backward passes; parameters,
     # gradients and Adam's moments stay float32
     precision: str = "bfloat16"
-    # BatchNorm over the whole batch; false (per-replica statistics) needs
-    # more than one device and is a lever
+    # BatchNorm over the global batch of every rank; false: each rank's own
+    # statistics (averaged into the running ones after each phase)
     sync_batchnorm: bool = True
     # "batch" (reference BatchNorm) or "group" (a lever)
     norm: str = "batch"

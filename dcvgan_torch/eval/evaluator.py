@@ -1,7 +1,6 @@
 """End-to-end evaluation: sample -> embed -> score.
 
-Counterpart of ``dcvgan_tpu/eval/evaluator.py`` on one device (no mesh).
-Two paths:
+Counterpart of ``dcvgan_tpu/eval/evaluator.py``. Two paths:
 
 - **in memory**: generated videos and real dataset clips go straight
   through the feature extractor. With ``device_resident=True`` (the
@@ -11,6 +10,14 @@ Two paths:
   (``eval/sampler.generate_samples``). The two score the same.
 - **directories**: :meth:`Evaluator.evaluate_dirs` scores directories of
   mp4 files.
+
+Over data-parallel ranks (:meth:`Evaluator.set_layout`, the counterpart of
+``set_mesh``), each sampling round's batch splits over the ranks: every
+rank draws the round's seeded latents, samples and embeds its rows on its
+device, the features and probabilities go to rank 0 on the host group,
+rank 0 scores them and every rank returns rank 0's scores. JAX's
+``set_mesh`` runs one program over the chips of one process; with one
+process per card the process group takes its place.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from dcvgan_torch import prng
 from dcvgan_torch.eval.features import FeatureExtractor, default_extractor
 from dcvgan_torch.eval.metrics import score_features
 from dcvgan_torch.eval.sampler import generate_samples
+from dcvgan_torch.parallel.mesh import SINGLE, Layout, broadcast_from_first, gather_to_first
 from dcvgan_torch.utils.video_np import videos_to_uint8
 
 
@@ -46,6 +54,18 @@ class Evaluator:
         # <= 0 embeds every clip of the dataset
         self.max_real_samples = max_real_samples
         self._real_cache: Optional[np.ndarray] = None
+        self.layout: Layout = SINGLE
+
+    def set_layout(self, layout: Layout) -> None:
+        """Split each sampling round of the device-resident path over the
+        ranks of ``layout`` (see the module docstring); every rank must call
+        :meth:`evaluate` then. The round's batch must split evenly."""
+        if self.batchsize % layout.world:
+            raise ValueError(
+                f"evaluation.batchsize {self.batchsize} not divisible by the "
+                f"{layout.world} data-parallel ranks"
+            )
+        self.layout = layout
 
     # ------------------------------------------------------------ real side
     def _real_features(self) -> np.ndarray:
@@ -75,25 +95,47 @@ class Evaluator:
     # ------------------------------------------------------------ fake side
     def evaluate(self, gan, state, gen: torch.Generator, device_resident: bool = True) -> Dict[str, float]:
         """Sample ``num_samples`` videos from ``state`` (round i from
-        ``prng.for_step(gen, i)``) and compute the configured metrics."""
+        ``prng.for_step(gen, i)``) and compute the configured metrics. Over
+        ranks, rank 0 scores and every rank returns its scores."""
         if device_resident:
             feats, probs = self.sample_and_embed(gan, state, gen)
-            return self._score(feats, probs)
+            scores = self._score(feats, probs) if feats is not None else None
+            return broadcast_from_first(scores, self.layout)
         _, xc = generate_samples(gan, state, gen, self.num_samples, self.batchsize, with_geo=False)
         return self.score_videos(xc)
 
     def sample_and_embed(self, gan, state, gen: torch.Generator, num: Optional[int] = None):
         """ceil(num / batchsize) sampling rounds, each quantised and embedded
-        on the device; returns (features, probabilities) as numpy."""
+        on the device; returns (features, probabilities) as numpy, in the
+        rounds' order. Over ranks each rank samples its rows of every round
+        and rank 0 returns everything, the others ``(None, None)``."""
         num = self.num_samples if num is None else num
+        lay = self.layout
+        rounds = (num + self.batchsize - 1) // self.batchsize
+        local = self.batchsize // lay.world
         feats: List[torch.Tensor] = []
         probs: List[torch.Tensor] = []
-        for i in range((num + self.batchsize - 1) // self.batchsize):
-            _, xc = gan.sample_videos(state, prng.for_step(gen, i), self.batchsize)
+        for i in range(rounds):
+            key = prng.for_step(gen, i)
+            if lay.world == 1:
+                _, xc = gan.sample_videos(state, key, self.batchsize)
+            else:
+                latents = gan.sample_latents(key, self.batchsize)
+                rows = lay.rows(local, device=key.device)
+                latents = type(latents)(*(t[rows] for t in latents))
+                _, xc = gan.sample_videos(state, None, local, latents=latents)
             f, p = self.extractor.device_embed(xc)
             feats.append(f)
             probs.append(p)
-        return torch.cat(feats)[:num].cpu().numpy(), torch.cat(probs)[:num].cpu().numpy()
+        out = []
+        for parts in (feats, probs):
+            x = torch.cat(parts).cpu().numpy()
+            # (ranks, rounds, rows, ...) on rank 0 -> rounds in order
+            x = gather_to_first(x.reshape((rounds, local) + x.shape[1:]), lay)
+            if x is not None:
+                x = x.swapaxes(0, 1).reshape((rounds * self.batchsize,) + x.shape[3:])[:num]
+            out.append(x)
+        return tuple(out)
 
     def score_videos(self, videos_uint8: np.ndarray) -> Dict[str, float]:
         """Score uint8 ``(N, T, H, W, 3)`` generated videos."""

@@ -19,7 +19,11 @@ input's dtype and rounds once; in train mode it uses the biased batch
 variance and stores that *biased* variance in the running statistics with
 momentum 0.9 (torch's 0.1), where torch would store the unbiased one.
 Whether a train-mode forward writes the running statistics is an explicit
-argument: the train step decides which of its forwards do.
+argument: the train step decides which of its forwards do. Under data
+parallelism with global-batch statistics (:func:`sync_batch_norms`) a
+train-mode forward takes the mean and variance of the whole batch over the
+ranks of the default process group, as the JAX package's BatchNorm computes
+them for a batch sharded under ``jit``.
 
 **GroupNorm** (``trainer.norm: group``, :class:`ChannelGroupNorm`) takes
 BatchNorm's place at the same slots. It normalises each sample over groups
@@ -31,11 +35,13 @@ compute the same thing. Both are :class:`Norm` layers, called as
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from dcvgan_torch.parallel.mesh import all_reduce_sum
 
 BN_MOMENTUM = 0.1  # torch's convention: new = (1 - m) * old + m * batch
 
@@ -111,18 +117,24 @@ class Norm:
 class _FlaxBatchNorm(Norm):
     """Forward shared by :class:`BatchNorm2d` and :class:`BatchNorm3d`."""
 
+    # set by sync_batch_norms(): train-mode statistics over every rank's rows
+    global_batch = False
+
     def forward(
         self, x: torch.Tensor, train: bool = False, update_stats: bool = True
     ) -> torch.Tensor:
         """Eval mode (``train=False``) normalises with the running statistics.
         Train mode normalises with the batch's mean and biased variance, in
         float32, and, when ``update_stats``, moves the running statistics
-        towards them (the biased variance, as flax stores it)."""
+        towards them (the biased variance, as flax stores it). With
+        ``global_batch`` the batch is every rank's rows together."""
         if not train:
             return F.batch_norm(
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 False, 0.0, self.eps,
             )
+        if self.global_batch:
+            return self._global_batch_forward(x, update_stats)
         out, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps
         )
@@ -133,6 +145,42 @@ class _FlaxBatchNorm(Norm):
                 self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean.float(), alpha=BN_MOMENTUM)
                 self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
         return out
+
+    def _global_batch_forward(self, x: torch.Tensor, update_stats: bool) -> torch.Tensor:
+        """Statistics of the global batch: each rank sums x, x^2 and its
+        count in float32, one differentiable SUM all-reduce of the packed
+        ``[2C + 1]`` vector adds the ranks' sums, and mean = s1 / n,
+        var = s2 / n - mean^2 (flax's fast variance, clamped at 0)."""
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        xf = x.float()
+        count = xf.new_full((1,), x.numel() // c)
+        total = all_reduce_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]))
+        n = total[2 * c]
+        mean = total[:c] / n
+        var = (total[c: 2 * c] / n - mean * mean).clamp(min=0.0)
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        out = ((xf - mean.view(shape)) * mul.view(shape) + self.bias.float().view(shape)).to(x.dtype)
+        if update_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)
+                self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
+        return out
+
+
+def running_statistics(module: nn.Module) -> list:
+    """The running means and variances of every BatchNorm of ``module``."""
+    return [t for m in module.modules() if isinstance(m, _FlaxBatchNorm)
+            for t in (m.running_mean, m.running_var)]
+
+
+def sync_batch_norms(module: nn.Module) -> None:
+    """Give every BatchNorm of ``module`` global-batch statistics over the
+    default process group."""
+    for m in module.modules():
+        if isinstance(m, _FlaxBatchNorm):
+            m.global_batch = True
 
 
 class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
@@ -214,12 +262,22 @@ def fold_batch_norm(bn: nn.BatchNorm2d) -> tuple[torch.Tensor, torch.Tensor]:
     return scale, shift
 
 
+class RowsOfBatch(NamedTuple):
+    """Draws of a batch of ``total`` rows from ``generator``, of which this
+    rank keeps ``rows``: a rank's share of a global batch's draw."""
+
+    generator: torch.Generator
+    rows: torch.Tensor
+    total: int
+
+
 class Noise(nn.Module):
     """Additive Gaussian noise, ``x + sigma * N(0, 1)``, whenever
     ``use_noise`` is set: a static flag, applied in train and eval alike.
 
     The unit-normal draw is ``noise`` when given (shaped like ``x``), else it
-    comes from ``generator``.
+    comes from ``generator``: a ``torch.Generator``, or a
+    :class:`RowsOfBatch` whose rows of the whole batch's draw it takes.
     """
 
     def __init__(self, use_noise: bool, sigma: float = 0.2):
@@ -231,11 +289,14 @@ class Noise(nn.Module):
         self,
         x: torch.Tensor,
         noise: Optional[torch.Tensor] = None,
-        generator: Optional[torch.Generator] = None,
+        generator: Optional[Union[torch.Generator, RowsOfBatch]] = None,
     ) -> torch.Tensor:
         if not self.use_noise:
             return x
-        if noise is None:
+        if noise is None and isinstance(generator, RowsOfBatch):
+            shape = (generator.total,) + tuple(x.shape[1:])
+            noise = torch.randn(shape, generator=generator.generator, device=x.device)[generator.rows]
+        elif noise is None:
             noise = torch.randn(x.shape, generator=generator, device=x.device)
         # sigma rounded to the compute dtype first, as the JAX package does
         sigma = torch.tensor(self.sigma).to(x.dtype).item()

@@ -60,9 +60,15 @@ def base_key(seed: int, device: Union[str, torch.device] = "cpu") -> torch.Gener
     return _generator(_mix(seed & _MASK64, 0), device)
 
 
+def fold_in(gen: torch.Generator, data: int) -> torch.Generator:
+    """A generator that is a pure function of ``gen``'s seed and ``data``
+    (``jax.random.fold_in``)."""
+    return _generator(_mix(gen.initial_seed(), data & _MASK64), gen.device)
+
+
 def for_step(gen: torch.Generator, step: int) -> torch.Generator:
     """The per-iteration generator: a pure function of ``gen``'s seed and ``step``."""
-    return _generator(_mix(gen.initial_seed(), step & _MASK64), gen.device)
+    return fold_in(gen, step)
 
 
 def named(gen: torch.Generator, name: str) -> torch.Generator:

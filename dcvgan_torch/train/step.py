@@ -48,9 +48,27 @@ stream names, so that an undrawn step replays from its key:
 - ``trainer.norm: group``: every model's BatchNorms become
   :class:`ChannelGroupNorm` (``models/layers.py``).
 
-Not ported: the multi-device layouts (``trainer.sync_batchnorm: false`` and
-any mesh axis past one device); :meth:`DCVGAN._refuse_levers` raises for
-them.
+**Data parallelism** (``parallel/mesh.py``): given a :class:`Layout` of W
+ranks, each rank runs this step on its rows of the global batch and the
+ranks reduce explicitly, in one SUM all-reduce of one flat buffer per
+optimizer update, before Adam's step (``pmean`` precedes the optax chain):
+
+- ``trainer.sync_batchnorm: true`` (the JAX ``jitted_train_step`` on a
+  data-sharded batch): every BatchNorm takes the global batch's statistics
+  (``models/layers.py``); each rank draws the *global* batch's latents,
+  critic noise and dropout masks from the step's generators and keeps its
+  rows, so W ranks at batch B compute what one rank computes at batch B.
+  The gradients and the losses are averaged;
+- ``trainer.sync_batchnorm: false`` (``sharded_train_step``, per-replica
+  statistics): BatchNorm is local, each rank's fakes and noise come from
+  its own stream, ``fold_in(step generator, rank)``, while ``t_rand`` and
+  the gates stay shared; the gradients, the running statistics and the
+  losses are averaged where the JAX step ``pmean``s them: after the D
+  phase for the critics, after the G phase for the generators.
+
+The EMA needs no collective: the parameters stay replica-identical.
+``mesh.time > 1`` (the time-sharded critics) is not ported;
+:meth:`DCVGAN._refuse_levers` raises for it.
 
 Parameters, gradients and Adam's moments are float32; the forward and
 backward passes run in the compute dtype (``models/layers.py``). The step
@@ -81,8 +99,15 @@ from dcvgan_torch.models.discriminators import (
     VideoDiscriminator,
 )
 from dcvgan_torch.models.ggen import GeometricVideoGenerator
-from dcvgan_torch.models.layers import cast_for_compute, place_for_training
+from dcvgan_torch.models.layers import (
+    RowsOfBatch,
+    cast_for_compute,
+    place_for_training,
+    running_statistics,
+    sync_batch_norms,
+)
 from dcvgan_torch.ops.dequant import dequantize_video, dequantize_videos
+from dcvgan_torch.parallel.mesh import SINGLE, TIME_NOT_PORTED, Layout, all_reduce_mean_
 from dcvgan_torch.train.state import (
     GENERATOR_NAMES,
     MODEL_NAMES,
@@ -117,6 +142,10 @@ class StepDraws:
     name to its unit-normal tensor (``models/discriminators.py``). The
     dropout entries are the two keep masks of the colour generator. Under
     ``shared_fakes`` the ``d_latents`` and ``d_dropout`` are not used.
+
+    Under data parallelism with global-batch statistics the draws are the
+    global batch's (every rank is handed the same) and the step keeps its
+    rows; with per-replica statistics they are this rank's own.
     """
 
     t_rand: Optional[int] = None
@@ -142,15 +171,18 @@ class DCVGAN:
 
     ``device`` defaults to ``cuda`` and raises without one; pass ``"cpu"``
     to run on the CPU. The compute dtype is bfloat16 when
-    ``trainer.precision`` is ``bfloat16``, else float32.
+    ``trainer.precision`` is ``bfloat16``, else float32. ``layout`` places
+    this process among the data-parallel ranks (one rank by default).
     """
 
     def __init__(
         self,
         config: ExperimentConfig,
         device: Optional[Union[str, torch.device]] = None,
+        layout: Layout = SINGLE,
     ):
         self.config = config
+        self.layout = layout
         self.device = resolve_device(device)
         self.dtype = (
             torch.bfloat16 if config.trainer.precision == "bfloat16" else torch.float32
@@ -201,6 +233,8 @@ class DCVGAN:
             module = self._build(name)
             module.reset_parameters(prng.for_step(gen, i))
             models[name] = place_for_training(module, self.device, self.dtype)
+            if self.global_batch:
+                sync_batch_norms(module)
             opt[name] = make_optimizer(getattr(self.config, name).optimizer, module.parameters())
         ema = None
         if self.config.trainer.ema_decay > 0:
@@ -270,19 +304,15 @@ class DCVGAN:
         return xg, xc
 
     # ------------------------------------------------------------ train step
+    @property
+    def global_batch(self) -> bool:
+        """Whether the step's statistics and draws span every rank's rows."""
+        return self.config.trainer.sync_batchnorm and self.layout.world > 1
+
     def _refuse_levers(self) -> None:
-        """The multi-device layouts are not ported: per-replica statistics
-        (``trainer.sync_batchnorm: false``) and any mesh axis past one
-        device."""
-        cfg = self.config
-        on = []
-        if not cfg.trainer.sync_batchnorm:
-            on.append("trainer.sync_batchnorm=false")
-        if cfg.mesh.data not in (-1, 1):
-            on.append("mesh.data")
-        on += [f"mesh.{k}" for k in ("time", "dcn") if getattr(cfg.mesh, k) > 1]
-        if on:
-            raise NotImplementedError(f"not ported yet: {', '.join(on)}")
+        """The time-sharded critics (``mesh.time > 1``) are not ported."""
+        if self.config.mesh.time > 1:
+            raise NotImplementedError(TIME_NOT_PORTED)
 
     def ingest(self, batch: Mapping[str, Union[torch.Tensor, np.ndarray]]) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(xg_real, xc_real)`` in the compute dtype on the device, from a
@@ -325,12 +355,20 @@ class DCVGAN:
         self._refuse_levers()
         cfg = self.config
         lever = cfg.trainer
+        lay = self.layout
         draws = draws or StepDraws()
         step = state.step + 1
         kstep = prng.on_device(prng.for_step(key, step), self.device)
+        # per-replica statistics: this rank's own fakes and noise
+        klocal = kstep if lever.sync_batchnorm else prng.fold_in(kstep, lay.rank)
 
         xg_real, xc_real = self.ingest(batch)
         b = xc_real.shape[0]
+        # under global-batch statistics every draw is the global batch's, of
+        # which this rank keeps ``rows``; else the draws are this rank's
+        wide = self.global_batch
+        n = b * lay.world if wide else b
+        rows = lay.rows(b, device=self.device) if wide else None
 
         t_rand = draws.t_rand
         if t_rand is None:
@@ -346,12 +384,16 @@ class DCVGAN:
             ``remat`` (only where it carries a graph) each generator is
             recomputed in the backward."""
             if latents is None:
-                latents = self.sample_latents(k, b)
+                latents = self.sample_latents(k, n)
             z_content, e, h0, z_color = (t.to(self.device) for t in latents)
             if dropout is None:
                 dropout = state.cgen.dropout_masks(
-                    b * cfg.video_length, prng.named(k, "cgen_dropout"), self.device
+                    n * cfg.video_length, prng.named(k, "cgen_dropout"), self.device
                 )
+            if wide:
+                z_content, e, h0, z_color = (t[rows] for t in (z_content, e, h0, z_color))
+                dropout = [m.view(n, cfg.video_length, -1)[rows].reshape(b * cfg.video_length, -1)
+                           for m in dropout]
 
             def ggen(update_stats):
                 return state.ggen(z_content, e, h0, train=True, update_stats=update_stats)
@@ -366,15 +408,19 @@ class DCVGAN:
             xg_f = ggen(update_stats)
             return xg_f, cgen(update_stats, xg_f)
 
-        def critic(name, xg, xc, train, update_stats, noise, k):
+        def critic(name, xg, xc, train, update_stats, noise, k, parts=1):
             if name == "idis":
                 xg, xc = frame(xg), frame(xc)
+            if wide:
+                own = rows if parts == 1 else lay.rows(b, parts, self.device)
+                noise = {layer: d[own] for layer, d in noise.items()} if noise else None
+                k = RowsOfBatch(k, own, parts * n)
             return getattr(state, name)(
                 xg, xc, train=train, update_stats=update_stats, noise=noise, generator=k
             )
 
         # ------------------------------------------------ phase discriminator
-        kg = prng.named(kstep, "g_fake")
+        kg = prng.named(klocal, "g_fake")
         if lever.shared_fakes:
             # the step's one generator forward; the G phase pulls its
             # gradient back through this graph
@@ -383,19 +429,19 @@ class DCVGAN:
         else:
             with torch.no_grad():
                 xg_fake, xc_fake = fakes(
-                    prng.named(kstep, "d_fake"), draws.d_latents, draws.d_dropout, False
+                    prng.named(klocal, "d_fake"), draws.d_latents, draws.d_dropout, False
                 )
         if lever.critic_joint_batch:
             xg_joint = torch.cat([xg_real, xg_fake])
             xc_joint = torch.cat([xc_real, xc_fake])
         d_losses = {}
         for name in CRITIC_NAMES:
-            nkey = prng.named(kstep, f"{name}_noise")
+            nkey = prng.named(klocal, f"{name}_noise")
             given = (draws.d_noise or {}).get(name, {})
             if lever.critic_joint_batch:
                 # one forward on [real; fake]: the statistics advance once
                 y = critic(name, xg_joint, xc_joint, True, True, given.get("joint"),
-                           prng.named(nkey, "joint"))
+                           prng.named(nkey, "joint"), parts=2)
                 y_real, y_fake = y[:b], y[b:]
             else:
                 # real, then fake: the running statistics advance over both in turn
@@ -406,7 +452,10 @@ class DCVGAN:
             d_losses[name] = self.loss.dis(y_real, y_fake)
         d_params = [p for name in CRITIC_NAMES for p in getattr(state, name).parameters()]
         d_total = d_losses["idis"] + d_losses["vdis"] + d_losses["gdis"]
-        for p, g in zip(d_params, torch.autograd.grad(d_total, d_params)):
+        d_grads = list(torch.autograd.grad(d_total, d_params))
+        d_metrics = torch.stack([d_losses[name].detach() for name in CRITIC_NAMES])
+        self._average(d_grads + [d_metrics], state, CRITIC_NAMES)
+        for p, g in zip(d_params, d_grads):
             p.grad = g
         if step % cfg.num_gen_update == 0:
             for name in CRITIC_NAMES:
@@ -424,9 +473,12 @@ class DCVGAN:
         ]
         loss_gen = self.loss.gen(*y)
         g_params = [p for name in GENERATOR_NAMES for p in getattr(state, name).parameters()]
-        g_grads = torch.autograd.grad(loss_gen, g_params, allow_unused=True)
+        g_grads = [g if g is not None else torch.zeros_like(p) for p, g in zip(
+            g_params, torch.autograd.grad(loss_gen, g_params, allow_unused=True))]
+        g_metric = loss_gen.detach().reshape(1)
+        self._average(g_grads + [g_metric], state, GENERATOR_NAMES)
         for p, g in zip(g_params, g_grads):
-            p.grad = g if g is not None else torch.zeros_like(p)
+            p.grad = g
         if step % cfg.num_dis_update == 0:
             for name in GENERATOR_NAMES:
                 state.opt[name].step()
@@ -437,9 +489,19 @@ class DCVGAN:
                 self._advance_ema(state)
 
         state.step = step
-        metrics = {f"loss_{name}": d_losses[name].detach() for name in CRITIC_NAMES}
-        metrics["loss_gen"] = loss_gen.detach()
+        metrics = {f"loss_{name}": d_metrics[i] for i, name in enumerate(CRITIC_NAMES)}
+        metrics["loss_gen"] = g_metric[0]
         return state, metrics
+
+    def _average(self, tensors, state: GANState, names) -> None:
+        """``pmean`` over the ranks, in place, in one all-reduce: the
+        gradients and losses in ``tensors`` and, under per-replica
+        statistics, the running statistics of the models ``names``."""
+        if self.layout.world == 1:
+            return
+        if not self.config.trainer.sync_batchnorm:
+            tensors = tensors + [t for name in names for t in running_statistics(getattr(state, name))]
+        all_reduce_mean_(tensors, self.layout)
 
     def _advance_ema(self, state: GANState) -> None:
         """``ema = ema * decay + params * (1 - decay)``, in float32."""

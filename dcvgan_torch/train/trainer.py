@@ -15,6 +15,18 @@ the JAX trainer's:
 - SIGTERM and SIGINT end the loop through a forced final checkpoint;
 - with an evaluator (``eval/evaluator.py``), the configured metrics are
   scored at step 0 and every ``evaluation_interval`` steps.
+
+Under a process group (``parallel/mesh.py``; ``torchrun`` and
+``cli.train``) every rank runs this loop on its own device: the trainer
+builds the layout from ``config.mesh``, gives the loader this rank's slice
+of each global batch, broadcasts rank 0's initial state and lets the train
+step reduce. Only rank 0 logs, writes TensorBoard, samples and writes
+checkpoints; the others wait at a barrier until each checkpoint is on
+disk. On resume rank 0 restores its latest checkpoint and the
+broadcast of its state carries it to the others. The
+evaluation runs over the ranks when its batch splits over them, else on
+rank 0 alone. A stop signal on any rank ends every rank's loop at the same
+step (a MAX all-reduce of the flag on the host each step).
 """
 
 from __future__ import annotations
@@ -34,6 +46,14 @@ from dcvgan_torch.config import ExperimentConfig, flatten_config, save_config
 from dcvgan_torch.data.loader import VideoLoader
 from dcvgan_torch.eval.sampler import generate_samples
 from dcvgan_torch.logging.logger import Logger, MetricType
+from dcvgan_torch.parallel.mesh import (
+    barrier,
+    batch_size_divisor,
+    broadcast_from_first,
+    create_layout,
+    replicate,
+    stop_anywhere,
+)
 from dcvgan_torch.train.checkpoint import CheckpointManager
 from dcvgan_torch.train.state import GANState, GeneratorState
 from dcvgan_torch.train.step import DCVGAN, NUM_SEGM_PARTS
@@ -45,6 +65,30 @@ from dcvgan_torch.utils.video_np import (
 )
 
 LOSS_NAMES = ("loss_gen", "loss_idis", "loss_vdis", "loss_gdis")
+
+
+class _Silent:
+    """The logger of a rank other than 0: every call does nothing."""
+
+    def __init__(self):
+        self.metrics: Dict[str, object] = {}
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
+def _zero_adam_states(state: GANState) -> None:
+    """Zero Adam moments and step for every parameter, laid out as a
+    restored checkpoint's (``CheckpointManager.restore`` maps every tensor,
+    the step too, to the parameters' device): what ``replicate`` fills with
+    rank 0's restored state on the other ranks."""
+    for name, module in state.models.items():
+        for p in module.parameters():
+            state.opt[name].state[p] = {
+                "step": torch.zeros((), device=p.device),
+                "exp_avg": torch.zeros_like(p),
+                "exp_avg_sq": torch.zeros_like(p),
+            }
 
 
 class Trainer:
@@ -67,28 +111,49 @@ class Trainer:
         run_dir = Path(config.log_dir) / config.experiment_name
         tb_dir = Path(config.tensorboard_dir) / config.experiment_name
         self.run_dir = run_dir
-        self.logger = logger or Logger(run_dir, tb_dir)
+        self.layout = create_layout(config)
+        self.main = self.layout.rank == 0
+        if self.main:
+            self.logger = logger or Logger(run_dir, tb_dir)
+            # the run directory's copy of the config
+            run_dir.mkdir(parents=True, exist_ok=True)
+            save_config(config, run_dir / "config.yml")
+            self.ckpt = CheckpointManager(run_dir / "models")
+        else:
+            self.logger, self.ckpt = _Silent(), None
 
-        # the run directory's copy of the config
-        run_dir.mkdir(parents=True, exist_ok=True)
-        save_config(config, run_dir / "config.yml")
-
-        self.gan = DCVGAN(config, device=device)
+        self.gan = DCVGAN(config, device=device, layout=self.layout)
         self.device = self.gan.device
+        divisor = batch_size_divisor(self.layout)
         self.loader = VideoLoader(
             dataset,
             batchsize=config.batchsize,
             n_workers=config.dataset.n_workers,
             seed=config.seed,
+            process_index=self.layout.rank,
+            process_count=divisor,
+            shard_divisor=divisor,
         )
-        self.ckpt = CheckpointManager(run_dir / "models")
+        if evaluator is not None and divisor > 1:
+            # the evaluation's rounds split over the ranks where they can
+            try:
+                evaluator.set_layout(self.layout)
+            except ValueError as e:
+                self.logger.info(f"eval stays on rank 0: {e}")
         self.base_key = prng.base_key(config.seed, self.device)
 
-        # init or resume
+        # init or resume: rank 0 restores, and replicate() carries its state
+        # to the other ranks
         state = self.gan.init_state(config.seed)
-        if config.trainer.resume and self.ckpt.latest_step() is not None:
-            state = self.ckpt.restore(state)
+        step = self.ckpt.latest_step() if self.main and config.trainer.resume else None
+        step = broadcast_from_first(step, self.layout)
+        if step is not None and self.main:
+            state = self.ckpt.restore(state, step)
             self.logger.info(f"resumed from checkpoint at step {state.step}")
+        elif step is not None:
+            state.step = step
+            _zero_adam_states(state)
+        replicate(state, self.layout)
         self.state: GANState = state
         self.epoch = self.state.step // max(1, len(self.loader))
         # a mid-epoch checkpoint resumes INSIDE its epoch: the first iterator
@@ -119,7 +184,9 @@ class Trainer:
 
     def log_samples(self, iteration: int) -> None:
         """5x5 grids of geometry | colour sample videos and of a real batch,
-        with histograms, to TensorBoard."""
+        with histograms, to TensorBoard; rank 0 only."""
+        if not self.main:
+            return
         key = prng.named(prng.for_step(self.base_key, iteration), "sample")
         xg, xc = generate_samples(self.gan, self.eval_state, key, self.NUM_LOG, self.NUM_LOG)
         self._log_geo_histograms(xg, "geospace_fake", iteration)
@@ -154,8 +221,12 @@ class Trainer:
     def evaluate(self, iteration: int) -> None:
         """The configured metrics of the eval state's samples, logged; does
         nothing without an evaluator or metrics. The extractor's fingerprint
-        is logged once: scores compare only under one fingerprint."""
+        is logged once: scores compare only under one fingerprint. Every
+        rank takes part when the evaluator spans the ranks, else rank 0
+        alone."""
         if self.evaluator is None or not self.config.evaluation.metrics:
+            return
+        if not self.main and self.evaluator.layout.world == 1:
             return
         if not self._eval_fingerprint_logged:
             self.logger.debug(f"eval extractor: {self.evaluator.extractor.fingerprint}")
@@ -200,9 +271,17 @@ class Trainer:
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
 
+    def save(self, force: bool = False) -> None:
+        """Rank 0 writes the checkpoint; every rank leaves once it is on disk."""
+        if self.main:
+            self.ckpt.save(self.state, force=force)
+            self.ckpt.wait()
+        barrier(self.layout)
+
     def _flush(self, pending: List[Dict[str, torch.Tensor]]) -> None:
-        """One transfer for the whole window's losses."""
-        if not pending:
+        """One transfer for the whole window's losses (rank 0; the losses
+        are the ranks' mean)."""
+        if not pending or not self.main:
             return
         host = torch.stack([torch.stack([m[k] for k in LOSS_NAMES]) for m in pending]).cpu()
         for row in host.tolist():
@@ -222,6 +301,9 @@ class Trainer:
         logger.debug(f"epochs: {cfg.n_epochs}", 1)
         name = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu"
         logger.debug(f"device: {self.device} ({name})", 1)
+        lay = self.layout
+        logger.debug(f"ranks: {lay.world} (dcn {lay.dcn} x data {lay.data}), "
+                     f"{'global-batch' if self.gan.global_batch else 'per-rank'} BatchNorm", 1)
         logger.debug("(start training)")
 
         if self.state.step == 0:
@@ -236,13 +318,15 @@ class Trainer:
         iteration = self.state.step
         k = cfg.trainer.max_inflight_steps if self.device.type == "cuda" else 0
 
+        stopped = False
         for _ in range(self.epoch, cfg.n_epochs):
-            if self._stop.is_set():
+            if stopped:
                 break
             self.epoch += 1
             skip, self._resume_skip = self._resume_skip, 0
             for batch in self.loader.epoch_iterator(epoch=self.epoch - 1, start_batch=skip):
-                if self._stop.is_set():
+                stopped = stop_anywhere(self._stop.is_set(), self.layout)
+                if stopped:
                     break
                 self.state, metrics = self.gan.train_step(
                     self.state, self.to_device(batch), self.base_key
@@ -261,7 +345,7 @@ class Trainer:
                         inflight.popleft().synchronize()
 
                 if iteration % cfg.snapshot_interval == 0:
-                    self.ckpt.save(self.state)
+                    self.save()
                 if iteration % cfg.log_samples_interval == 0:
                     self.log_samples(iteration)
                 if iteration % cfg.evaluation_interval == 0:
@@ -279,14 +363,14 @@ class Trainer:
                     logger.log()
                     logger.clear()
 
-        if self._stop.is_set():
+        stopped = stopped or stop_anywhere(self._stop.is_set(), self.layout)
+        if stopped:
             logger.info(
                 f"interrupted (preemption/SIGTERM) at iteration {iteration}; "
                 "saving checkpoint for resume"
             )
         # final snapshot and samples
-        self.ckpt.save(self.state, force=True)
-        self.ckpt.wait()
-        if not self._stop.is_set():
+        self.save(force=True)
+        if not stopped:
             self.log_samples(self.state.step)
         return self.state

@@ -418,14 +418,25 @@ def test_cli_listen_prints_its_port_and_serves(run_dir, monkeypatch, capsys):
     ["--mesh", "2"],
     ["--mesh", "-1", "--listen", "0"],
 ])
-def test_mesh_is_not_ported(run_dir, argv):
-    with pytest.raises(NotImplementedError, match="A12"):
-        port_serve.main([str(run_dir), "-1", "--device", "cpu"] + argv)
+def test_mesh_is_not_ported(run_dir, argv, capsys):
+    """``--mesh`` is ported: 2 CPU replicas serve the run (the bytes are
+    held against one replica in ``test_torch_trainer_dist.py``); -1 means
+    every card, which the CPU has none of, so it is refused there."""
+    argv = [str(run_dir), "-1", "--device", "cpu", "-b", "2", "--iters-per-chunk", "1",
+            "--chunks", "1"] + argv
+    if "-1" in argv[1:] and argv[-3:] == ["-1", "--listen", "0"]:
+        with pytest.raises(ValueError, match="--mesh -1"):
+            port_serve.main(argv)
+        return
+    stats = port_serve.main(argv)
+    assert stats["replicas"] == 2 and stats["n_chips"] == 1 and stats["videos"] == 2
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == stats
 
 
 def test_server_with_a_mesh_raises():
+    """A mesh is a list of devices; anything else raises."""
     _, gan = _port_gan()
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="list of devices"):
         port_serve.GenerationServer(gan, gan.init_state(0).generators(), mesh=object())
 
 

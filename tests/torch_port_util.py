@@ -212,12 +212,12 @@ def step_configs(**over):
     return jcfg, pcfg
 
 
-def step_batch(seed, dtype):
+def step_batch(seed, dtype, batch: int = B):
     """A loader batch of uint8 (or the same dequantised to float32) colour
     and depth videos."""
     rng = np.random.default_rng(seed)
-    u8 = {"color": rng.integers(0, 256, (B, T, S, S, 3), dtype=np.uint8),
-          "depth": rng.integers(0, 256, (B, T, S, S, 1), dtype=np.uint8)}
+    u8 = {"color": rng.integers(0, 256, (batch, T, S, S, 3), dtype=np.uint8),
+          "depth": rng.integers(0, 256, (batch, T, S, S, 1), dtype=np.uint8)}
     if dtype == np.uint8:
         return u8
     return {k: v.astype(np.float32) / np.float32(127.5) - np.float32(1.0) for k, v in u8.items()}
@@ -269,11 +269,13 @@ def port_state(pgan, jstate):
     return state
 
 
-def step_draws(gan, state, key, step: int):
-    """The draws ``gan.train_step`` makes at 1-based ``step`` under ``key``,
-    as the port's ``StepDraws``: under ``shared_fakes`` no ``d_fake``
-    latents, under ``critic_joint_batch`` the critics' D-phase noise of the
-    ``joint`` stream for the 2B batch."""
+def step_draws(gan, state, key, step: int, batch: int = B, replica=None):
+    """The draws ``gan.train_step`` makes at 1-based ``step`` under ``key``
+    for a batch of ``batch``, as the port's ``StepDraws``: under
+    ``shared_fakes`` no ``d_fake`` latents, under ``critic_joint_batch`` the
+    critics' D-phase noise of the ``joint`` stream for the 2B batch. With
+    ``replica`` r, those of replica r of ``sharded_train_step``: its streams
+    fold r into the step's key, ``t_rand`` stays the step's."""
     import jax
     import jax.numpy as jnp
 
@@ -282,8 +284,11 @@ def step_draws(gan, state, key, step: int):
     from dcvgan_tpu.models import ColorVideoGenerator as JaxCGen
 
     cfg = gan.config
+    B = batch
     kstep = jax_prng.for_step(key, step)
     t_rand = int(jax.random.randint(jax_prng.named(kstep, "t_rand"), (), 0, cfg.video_length))
+    if replica is not None:
+        kstep = jax.random.fold_in(kstep, replica)
     gv = {"params": state.ggen.params, "batch_stats": state.ggen.batch_stats}
     cv = {"params": state.cgen.params, "batch_stats": state.cgen.batch_stats}
 
@@ -378,13 +383,15 @@ def gradient_gaps(jgan, jbefore, jafter, pstate, name):
     return per_tensor, float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def gradients_close(jgan, jbefore, jafter, pstate, name, n_steps: int = 1, zero=()):
-    """The port's gradients of ``name`` against the JAX step's, per tensor
-    and in L2 (``GRAD_RTOL``, ``GRAD_L2``; the image critic at ``ATOL_F32``).
-    Every tensor's gradient is nonzero, except those named in ``zero``:
-    0 in JAX (up to the rounding of its weight decay term) and rounding
-    residue in the port, at most 5e-5 of the model's largest gradient."""
-    want = jax_grads(jbefore, jafter, name, jgan.config, n_steps)
+def gradients_close(jgan, jbefore, jafter, pstate, name, n_steps: int = 1, zero=(), scale=1.0):
+    """The port's gradients of ``name`` against the JAX step's times
+    ``scale``, per tensor and in L2 (``GRAD_RTOL``, ``GRAD_L2``; the image
+    critic at ``ATOL_F32``). Every tensor's gradient is nonzero, except
+    those named in ``zero``: 0 in JAX (up to the rounding of its weight
+    decay term) and rounding residue in the port, at most 5e-5 of the
+    model's largest gradient."""
+    want = {k: g * np.float32(scale)
+            for k, g in jax_grads(jbefore, jafter, name, jgan.config, n_steps).items()}
     module = getattr(pstate, name)
     got = flatten_tree(port_tree(name, module, {k: p.grad for k, p in module.named_parameters()}))
     assert set(got) == set(want) and len(got) > 3
@@ -437,3 +444,122 @@ def one_intra_op_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+# --------------------------------------- data-parallel steps (gloo ranks)
+# A global batch of 4 over 2 ranks (tests/torch_dist_util.py starts them);
+# the JAX side on a data=2 mesh of its virtual CPU devices.
+GLOBAL_B, WORLD = 4, 2
+
+
+class DataParallelCase:
+    """One state, batch and JAX model for the data-parallel tests: ``raw``
+    is the port's config dict (``trainer`` entries over the f32 EMA step
+    config), ``jstate`` / ``pstate`` the same state in both packages,
+    ``mesh`` JAX's ``data=2`` mesh."""
+
+    def __init__(self, **trainer):
+        from dcvgan_torch.train.step import DCVGAN as PortGAN
+        from dcvgan_tpu.parallel.mesh import create_mesh
+        from dcvgan_tpu.train.step import DCVGAN as JaxGAN
+
+        trainer = {"precision": "float32", "ema_decay": 0.9, **trainer}
+        self.raw = step_raw(batchsize=GLOBAL_B, trainer=trainer)
+        jcfg, self.pcfg = step_configs(batchsize=GLOBAL_B, trainer=trainer)
+        self.jgan = JaxGAN(jcfg)
+        self.jstate = jax_state(self.jgan, seed=11)
+        self.pstate = port_state(PortGAN(self.pcfg, device="cpu"), self.jstate)
+        self.mesh = create_mesh(data=WORLD, batchsize=GLOBAL_B)
+        self.batch = step_batch(12, np.uint8, GLOBAL_B)
+
+    @staticmethod
+    def key():
+        from dcvgan_tpu import prng
+
+        return prng.base_key(3)
+
+    def payload(self, steps, **over) -> dict:
+        """A ``torch_dist_util.train_steps`` payload from this state."""
+        from torch_dist_util import state_payload
+
+        return {"config": self.raw, "state": state_payload(self.pstate), "steps": steps, **over}
+
+    def jax_step(self, per_replica: bool):
+        """JAX's step on the sharded batch: ``sharded_train_step`` (per-replica
+        statistics) or ``jitted_train_step``; ``(after, metrics)``, computed
+        before it returns (no rank starts while XLA's collectives run)."""
+        import jax
+
+        from dcvgan_tpu.parallel.mesh import replicate, shard_batch
+
+        fn = self.jgan.sharded_train_step(self.mesh) if per_replica else self.jgan.jitted_train_step
+        out = fn(replicate(self.jstate, self.mesh), shard_batch(self.batch, self.mesh), self.key())
+        return jax.block_until_ready(out)
+
+    def port_result(self, result):
+        """A port ``GANState`` holding a rank's state and gradients after a step."""
+        from dcvgan_torch.train.step import DCVGAN as PortGAN
+        from torch_dist_util import load_state_payload
+
+        state = PortGAN(self.pcfg, device="cpu").init_state(0)
+        load_state_payload(state, result)
+        for name, module in state.models.items():
+            for k, p in module.named_parameters():
+                p.grad = result["grads"][name][k]
+        return state
+
+    def match_jax(self, jafter, jm, results, grad_scale=1.0) -> None:
+        """Rank 0's first step against JAX's: losses at ``ATOL_F32``,
+        gradients (times ``grad_scale``) through ``gradients_close``,
+        parameters within 2.5 lr, statistics at ``ATOL_F32``; every rank
+        equal to rank 0."""
+        replicas_equal(results)
+        after = results[0][0]
+        for k in LOSSES:
+            within(after["metrics"][k], np.asarray(jm[k]), ATOL_F32, ATOL_F32)
+        pstate = self.port_result(after)
+        for name in MODEL_NAMES:
+            gradients_close(self.jgan, self.jstate, jafter, pstate, name, scale=grad_scale)
+            module = getattr(pstate, name)
+            got = flatten_tree(port_tree(name, module, dict(module.named_parameters())))
+            want = flatten_tree(numpy_tree(getattr(jafter, name).params))
+            for k in want:
+                within(got[k], want[k], 2.5 * LR)
+            stats = port_stats(name, module)
+            for k, v in flatten_tree(numpy_tree(getattr(jafter, name).batch_stats)).items():
+                within(stats[k], v, ATOL_F32, ATOL_F32)
+
+
+def replicas_equal(results) -> None:
+    """Every rank ends each step with the same parameters, statistics, Adam
+    moments, gradients and metrics, bit for bit."""
+    for other in results[1:]:
+        for a, b in zip(results[0], other):
+            assert a["metrics"] == b["metrics"]
+            for name in MODEL_NAMES:
+                for k, v in a["models"][name].items():
+                    assert torch.equal(v, b["models"][name][k]), (name, k)
+                for k, g in a["grads"][name].items():
+                    assert torch.equal(g, b["grads"][name][k]), (name, k)
+                sa, sb = a["opt"][name]["state"], b["opt"][name]["state"]
+                for i in sa:
+                    assert torch.equal(sa[i]["exp_avg"], sb[i]["exp_avg"]), (name, i)
+
+
+@pytest.fixture(scope="module")
+def no_persistent_compile_cache():
+    """JAX's persistent compilation cache off while a module runs: an
+    executable of ``sharded_train_step`` loaded back from it aborts the
+    process in XLA:CPU's all-reduce rendezvous ("Unexpected number of
+    participants"), or crashes it, under jax 0.9; compiled afresh it runs.
+    JAX decides once per process whether it uses the cache, so the decision
+    is reset on the way in and out. A module opts in with ``pytestmark``."""
+    import jax
+    from jax._src import compilation_cache
+
+    was = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    yield
+    jax.config.update("jax_enable_compilation_cache", was)
+    compilation_cache.reset_cache()

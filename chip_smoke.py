@@ -90,7 +90,22 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
     ``fused_norm_act_conv`` only in rank 0's ``log_samples``, the
     evaluation's rounds and the replicas (5 per cgen forward); both kernels
     held at this path's shapes first (10 rows a rank; 400 and 2,048 frames);
-13. a ``{"kernels": [...]}`` line, the card's line, and last
+13. the time-sharded path (``parallel/temporal.py``, ``mesh.time > 1``),
+    ``torchrun`` of the same ``--child`` mode with every rank on ``cuda:0``
+    over gloo: (a) ``mesh: {data: 1, time: 2}`` on 2 ranks, f32 with TF32
+    off, deterministic cuDNN, global batch 20, 3 steps, against phase 12's
+    one rank with the same global-batch BatchNorm arithmetic and unsharded
+    critics at phase 12's limits; (b) the bf16 flagship at ``mesh: {data:
+    2, time: 2}`` on 4 ranks for 18 steps: finite losses, first critic
+    losses near 2 ln 2, states equal, a checkpoint that restores, the it/s
+    (not a scaling number: four processes share one card) and peak memory
+    by rank; in both, one ``dequantize_video`` launch a step on every rank,
+    ``fused_norm_act_conv`` only in rank 0's ``log_samples``, and the halo
+    exchanges counted against the number the critics imply (52 a step);
+    (c) ``time 8`` of 16 frames raises the halo error before any step; both
+    kernels held at this path's shapes first (20 and 10 rows a data row,
+    400 frames);
+14. a ``{"kernels": [...]}`` line, the card's line, and last
     ``{"ok": true, "device": {...}}``.
 
 Every phase prints its numbers as it goes. Imports nothing of JAX.
@@ -2206,9 +2221,10 @@ DP_SERVE_MAX_LEVELS, DP_SERVE_MAX_SHARE = 2, 1e-2
 
 
 def dp_config(run: dict, root: Path, name: str, epochs: int, precision: str = "bfloat16",
-              sync: bool = True, evaluation: bool = False) -> tuple:
+              sync: bool = True, evaluation: bool = False, mesh: dict | None = None) -> tuple:
     """The train phase's config (mug-depth on its synthetic tree) as run
-    ``name`` under ``root``: ``(config, path of its YAML)``."""
+    ``name`` under ``root``, with ``mesh``'s axes: ``(config, path of its
+    YAML)``."""
     from dcvgan_torch.config import load_config, save_config
 
     base = run["trainer"].config
@@ -2217,6 +2233,8 @@ def dp_config(run: dict, root: Path, name: str, epochs: int, precision: str = "b
     cfg.experiment_name, cfg.n_epochs, cfg.log_interval = name, epochs, 1 if epochs < DP_TIMED_EPOCHS else LOG_EVERY
     cfg.log_dir, cfg.tensorboard_dir = str(root / name / "result"), str(root / name / "runs")
     cfg.trainer.precision, cfg.trainer.sync_batchnorm = precision, sync
+    for axis, size in (mesh or {}).items():
+        setattr(cfg.mesh, axis, size)
     if evaluation:
         cfg.evaluation = load_config(ROOT / "configs" / "mug-depth.yml").evaluation
         cfg.evaluation.extractor_weights = EVAL_WEIGHTS
@@ -2256,6 +2274,7 @@ def child(spec_path: str) -> int:
     from dcvgan_torch.logging.logger import Logger
     from dcvgan_torch.ops.dequant import dequantize_video
     from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+    from dcvgan_torch.parallel import temporal
     from dcvgan_torch.train.step import DCVGAN
     from dcvgan_torch.train.trainer import LOSS_NAMES
 
@@ -2265,6 +2284,14 @@ def child(spec_path: str) -> int:
     losses, seen, grads, step1 = [], {}, {}, {}
     train_step, update, average = DCVGAN.train_step, Logger.update, DCVGAN._average
     global_batch = DCVGAN.global_batch
+    exchange, halos = temporal._exchange, [0]
+
+    def counting(*args, **kwargs):
+        # one time-sharded halo exchange, forward or backward
+        halos[0] += 1
+        return exchange(*args, **kwargs)
+
+    temporal._exchange = counting
 
     def recording(self, *args, **kwargs):
         state, m = train_step(self, *args, **kwargs)
@@ -2301,15 +2328,18 @@ def child(spec_path: str) -> int:
         torch.cuda.reset_peak_memory_stats()
         fused_norm_act_conv.launches = 0
         dequantize_video.launches = 0
+        halos[0] = 0
         # -- main path: counts from 0 --------------------------------------
         t0 = time.perf_counter()
         trainer = cli_train.main(spec["argv"])
         torch.cuda.synchronize()
         fused, dequant = fused_norm_act_conv.launches, dequantize_video.launches
         # -- end of main path ------------------------------------------------
-        rec = {"run": spec["name"], "rank": rank, "world": trainer.layout.world,
+        lay = trainer.layout
+        rec = {"run": spec["name"], "rank": rank, "world": lay.world,
+               "layout": [lay.dcn, lay.data, lay.time, lay.row, lay.time_index],
                "device": str(trainer.device), "steps": trainer.state.step, "train_s": time.perf_counter() - t0,
-               "dequant_launches": dequant, "fused_launches": fused,
+               "dequant_launches": dequant, "fused_launches": fused, "halo_exchanges": halos[0],
                "losses": torch.stack(losses).cpu().tolist(), "iters_per_sec": seen.get("iters_per_sec", []),
                "state_sha256": state_sha256(trainer.state),
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -2416,6 +2446,59 @@ def one_process_run(cfg, steps: int) -> tuple:
     return losses, trainer
 
 
+def initial_params(cfg) -> dict:
+    """Every model's initial parameters for ``cfg``'s seed, flat f32 on the
+    host, by model."""
+    from dcvgan_torch.train.step import DCVGAN
+
+    init = DCVGAN(cfg).init_state(cfg.seed)
+    with torch.no_grad():
+        return {m: torch.cat([p.flatten() for p in init.models[m].parameters()]).cpu() for m in init.models}
+
+
+def saved_run(rec: dict, name: str, root: Path, cfg, p0: dict) -> dict:
+    """A child run's losses, the first step's reduced gradients and update
+    (saved by rank 0), its final state from its checkpoint, and the
+    parameters' moves from ``p0``."""
+    from dcvgan_torch.train.checkpoint import CheckpointManager
+    from dcvgan_torch.train.step import DCVGAN
+
+    saved = torch.load(root / f"{name}.pt")
+    state = CheckpointManager(root / name / "result" / name / "models").restore(
+        DCVGAN(cfg).init_state(cfg.seed + 1))
+    with torch.no_grad():
+        moved = {m: torch.cat([p.flatten() for p in state.models[m].parameters()]).cpu() - p0[m]
+                 for m in p0}
+    return {"losses": rec["losses"], "grads": saved["grads"], "state": state, "moved": moved,
+            "first": {m: saved["step1"][m] - p0[m] for m in p0}}
+
+
+def compare_runs(x: dict, y: dict) -> dict:
+    """Two ``saved_run``s: the losses' relative differences by step, and by
+    model the relative L2 distances of the first step's gradients and
+    update and of all the steps' updates."""
+    return {"loss_rel_by_step": [max(abs(u - v) / abs(v) for u, v in zip(ra, rb))
+                                 for ra, rb in zip(x["losses"], y["losses"])],
+            "first_step_grads_rel_l2": rel_l2(x["grads"], y["grads"]),
+            "first_step_updates_rel_l2": rel_l2(x["first"], y["first"]),
+            "updates_rel_l2": rel_l2(x["moved"], y["moved"])}
+
+
+def within_dp_limits(held: dict) -> bool:
+    """A ``compare_runs`` within the DP_* limits."""
+    roles = {m: "critics" if m in ("idis", "vdis", "gdis") else "generators"
+             for m in held["updates_rel_l2"]}
+    return (held["loss_rel_by_step"][0] <= DP_LOSS_RTOL
+            and max(held["loss_rel_by_step"]) <= DP_LATER_LOSS_RTOL
+            and all(v <= DP_GRAD_L2[roles[m]] for m, v in held["first_step_grads_rel_l2"].items())
+            and all(v <= DP_UPDATE_L2[roles[m]] for m, v in held["updates_rel_l2"].items()))
+
+
+def rounded(d: dict) -> str:
+    return json.dumps({k: ([float(f"{x:.3e}") for x in v] if isinstance(v, list)
+                           else {m: float(f"{x:.3e}") for m, x in v.items()}) for k, v in d.items()})
+
+
 def phase_data_parallel(run: dict, card: str) -> dict:
     """The data-parallel path (module docstring, phase 12)."""
     from dcvgan_torch import prng
@@ -2424,7 +2507,6 @@ def phase_data_parallel(run: dict, card: str) -> dict:
     from dcvgan_torch.cli.train import build_evaluator
     from dcvgan_torch.data.loader import VideoLoader
     from dcvgan_torch.ops.fused_block import fused_norm_act_conv
-    from dcvgan_torch.train.checkpoint import CheckpointManager
     from dcvgan_torch.train.step import DCVGAN
 
     root = Path(run["tmp"].name) / "dp"
@@ -2487,47 +2569,20 @@ def phase_data_parallel(run: dict, card: str) -> dict:
     if [r["world"] for r in recs["sync"]] != [2, 2] or {r["device"] for r in recs["sync"]} != {"cuda:0"}:
         raise AssertionError("the gloo ranks are not 2 on cuda:0")
 
-    init = DCVGAN(cfg_s).init_state(cfg_s.seed)
-    with torch.no_grad():
-        p0 = {m: torch.cat([p.flatten() for p in init.models[m].parameters()]).cpu() for m in init.models}
-    runs = {"two": (recs["sync"][0], "dp-sync-f32"), "ref": (recs_a["ref"][0], "dp-sync-f32-one"),
-            "control": (recs_a["control"][0], "dp-native-f32-one")}
-    seen: dict = {}
-    for key, (rec, name) in runs.items():
-        saved = torch.load(root / f"{name}.pt")
-        state = CheckpointManager(root / name / "result" / name / "models").restore(
-            DCVGAN(cfg_s).init_state(cfg_s.seed + 1))
-        with torch.no_grad():
-            moved = {m: torch.cat([p.flatten() for p in state.models[m].parameters()]).cpu() - p0[m]
-                     for m in p0}
-        seen[key] = {"losses": rec["losses"], "grads": saved["grads"], "state": state, "moved": moved,
-                     "first": {m: saved["step1"][m] - p0[m] for m in p0}}
-
-    def compare(a: str, b: str) -> dict:
-        x, y = seen[a], seen[b]
-        return {"loss_rel_by_step": [max(abs(u - v) / abs(v) for u, v in zip(ra, rb))
-                                     for ra, rb in zip(x["losses"], y["losses"])],
-                "first_step_grads_rel_l2": rel_l2(x["grads"], y["grads"]),
-                "first_step_updates_rel_l2": rel_l2(x["first"], y["first"]),
-                "updates_rel_l2": rel_l2(x["moved"], y["moved"])}
-
-    def rounded(d: dict) -> str:
-        return json.dumps({k: ([float(f"{x:.3e}") for x in v] if isinstance(v, list)
-                               else {m: float(f"{x:.3e}") for m, x in v.items()}) for k, v in d.items()})
-
-    held = compare("two", "ref")
+    p0 = initial_params(cfg_s)
+    seen = {key: saved_run(rec, name, root, cfg_s, p0) for key, (rec, name) in {
+        "two": (recs["sync"][0], "dp-sync-f32"), "ref": (recs_a["ref"][0], "dp-sync-f32-one"),
+        "control": (recs_a["control"][0], "dp-native-f32-one")}.items()}
+    held = compare_runs(seen["two"], seen["ref"])
     print(f"2 gloo ranks against one rank with the same global-batch BatchNorm arithmetic, f32 at global "
           f"batch 20, {len(seen['two']['losses'])} steps, deterministic cuDNN on both: {rounded(held)} "
           f"(held at: losses {DP_LOSS_RTOL:g} relative at the first step, {DP_LATER_LOSS_RTOL:g} later; "
           f"relative L2 by model: the first step's gradients {json.dumps(DP_GRAD_L2)}, the updates of "
           f"all steps {json.dumps(DP_UPDATE_L2)})", flush=True)
     print(f"control, one rank with per-rank BatchNorm (native_batch_norm) against the same one rank: "
-          f"{rounded(compare('control', 'ref'))}; 2 gloo ranks against it: {rounded(compare('two', 'control'))}",
-          flush=True)
-    roles = {m: "critics" if m in ("idis", "vdis", "gdis") else "generators" for m in p0}
-    if (held["loss_rel_by_step"][0] > DP_LOSS_RTOL or max(held["loss_rel_by_step"]) > DP_LATER_LOSS_RTOL
-            or any(v > DP_GRAD_L2[roles[m]] for m, v in held["first_step_grads_rel_l2"].items())
-            or any(v > DP_UPDATE_L2[roles[m]] for m, v in held["updates_rel_l2"].items())):
+          f"{rounded(compare_runs(seen['control'], seen['ref']))}; 2 gloo ranks against it: "
+          f"{rounded(compare_runs(seen['two'], seen['control']))}", flush=True)
+    if not within_dp_limits(held):
         raise AssertionError("2 gloo ranks and one rank disagree beyond the stated tolerance")
     loss_rel = max(held["loss_rel_by_step"])
     two_state = seen["two"]["state"]
@@ -2591,8 +2646,112 @@ def phase_data_parallel(run: dict, card: str) -> dict:
         "dequant_launches": {"nccl": recs_a["nccl"][0]["dequant_launches"],
                              **{k: [r["dequant_launches"] for r in v] for k, v in recs.items()}},
         "it_s": it_s, "loss_rel": loss_rel, "serve_bytes": diffs,
+        # phase 13 holds its time-sharded run to the same one-rank reference
+        "ref": seen["ref"], "p0": p0, "ref_config": cfg_s,
     }
 
+
+
+# ------------------------------------------------------------- time sharded
+# (a) mesh {data: 1, time: 2} on two gloo ranks sharing cuda:0: f32 with
+# TF32 off, deterministic cuDNN, global batch 20, 3 steps, held to phase
+# 12's one rank with the same global-batch BatchNorm arithmetic (its
+# unsharded critics) at phase 12's DP_* limits. (b) the bf16 flagship at
+# mesh {data: 2, time: 2} on four gloo ranks sharing cuda:0, 18 steps.
+# (c) time 8 of 16 frames raises before any step.
+TIME_TIMED_EPOCHS = 6
+# halo exchanges a train step makes under the flagship's settings (no
+# critic lever): each forward of the video critic runs 5 halo-extended
+# time-valid convs, the gradient critic 4 and its 1-frame temporal
+# difference, so 10 a forward of the pair. A halo's backward exchanges
+# again where its input carries a gradient: in the D phase (real and fake
+# videos without one) the convs after the first layer, 3 of the video
+# critic's and 3 of the gradient critic's; in the G phase every one of the
+# 10 (the fakes carry the generators' gradient).
+HALOS_PER_STEP = 2 * (10 + 6) + (10 + 10)
+
+
+def phase_time(run: dict, card: str, dp: dict) -> dict:
+    """The time-sharded path (module docstring, phase 13)."""
+    from dcvgan_torch import prng
+    from dcvgan_torch.data.loader import VideoLoader
+    from dcvgan_torch.parallel import create_layout
+    from dcvgan_torch.train.step import DCVGAN
+
+    root = Path(run["tmp"].name) / "time"
+    base = run["trainer"].config
+    # both kernels at this path's shapes first: a data row's batch at data 1
+    # (20 rows) and data 2 (10 rows), and log_samples' round (25 videos)
+    dequant_err = 0.0
+    for ways in (1, 2):
+        with VideoLoader(run["dataset"], base.batchsize, n_workers=2, seed=1, process_index=ways - 1,
+                         process_count=ways, shard_divisor=ways) as loader:
+            batch = {k: torch.from_numpy(v).cuda() for k, v in loader.fetch_batch(0).items()}
+        dequant_err = max(dequant_err, check_dequant_batch(batch, f"time-sharded data row of {ways} rows"))
+    fused_err = check_sites(25 * base.video_length, "time-sharded log_samples round", cgen_sites(base))
+
+    cfg_a, path_a = dp_config(run, root, "time-f32", 1, precision="float32", mesh={"data": 1, "time": 2})
+    cfg_b, path_b = dp_config(run, root, "time-flagship", TIME_TIMED_EPOCHS, mesh={"data": 2, "time": 2})
+    gloo = ["--dist-backend", "gloo", "--device", "cuda:0"]
+    recs_a = torchrun(2, [{"name": "time", "deterministic": True, "grads": str(root / "time-f32.pt"),
+                           "argv": ["--config", str(path_a)] + gloo}], root, "time-a")["time"]
+    recs_b = torchrun(4, [{"name": "flagship", "argv": ["--config", str(path_b)] + gloo}],
+                      root, "time-b")["flagship"]
+    for recs, cfg, label in ((recs_a, cfg_a, "2 gloo ranks on cuda:0, data 1 x time 2, f32"),
+                             (recs_b, cfg_b, "4 gloo ranks on cuda:0, data 2 x time 2, bf16 flagship")):
+        check_dp_run(recs, cfg, label)
+        want = [[1, cfg.mesh.data, cfg.mesh.time, r // cfg.mesh.time, r % cfg.mesh.time]
+                for r in range(len(recs))]
+        if [r["layout"] for r in recs] != want or {r["device"] for r in recs} != {"cuda:0"}:
+            raise AssertionError(f"{label}: layouts {[r['layout'] for r in recs]} on "
+                                 f"{sorted({r['device'] for r in recs})}, expected {want} on cuda:0")
+        halos = [r["halo_exchanges"] for r in recs]
+        print(f"{label}: halo exchanges {halos} in {recs[0]['steps']} steps, "
+              f"{HALOS_PER_STEP} a step a rank expected", flush=True)
+        if halos != [HALOS_PER_STEP * r["steps"] for r in recs]:
+            raise AssertionError(f"{label}: {halos} halo exchanges, expected {HALOS_PER_STEP} a step")
+
+    # (a) against phase 12's one unsharded rank
+    mine = saved_run(recs_a[0], "time-f32", root, dp["ref_config"], dp["p0"])
+    held = compare_runs(mine, dp["ref"])
+    print(f"2 time ranks (data 1 x time 2) against one rank with the same global-batch BatchNorm "
+          f"arithmetic and unsharded critics, f32 at global batch 20, {len(mine['losses'])} steps, "
+          f"deterministic cuDNN on both: {rounded(held)} (held at phase 12's limits)", flush=True)
+    if not within_dp_limits(held):
+        raise AssertionError("2 time ranks and one rank disagree beyond the stated tolerance")
+
+    # (b) the flagship's rate and memory
+    windows = recs_b[0]["iters_per_sec"]
+    it_s = statistics.median(windows[1:])
+    print(f"bf16 flagship, data 2 x time 2 on 4 gloo ranks, global batch 20: {it_s:.3f} it/s (median of "
+          f"{len(windows) - 1} windows of {LOG_EVERY} steps after the first; all {[round(w, 3) for w in windows]}) "
+          f"on {card}; not a scaling number: four processes share one card; peak memory by rank "
+          f"{[round(r['peak_gb'], 2) for r in recs_b]} GB", flush=True)
+
+    # (c) time 8 of 16 frames: the halo error before any step
+    cfg_c, _ = dp_config(run, root, "time-8", 1, mesh={"data": 1, "time": 8})
+    gan = DCVGAN(cfg_c, layout=create_layout(cfg_c, world=8, rank=0))
+    state = gan.init_state(cfg_c.seed)
+    before = {k: v.clone() for k, v in state.vdis.state_dict().items()}
+    try:
+        gan.train_step(state, batch, prng.base_key(cfg_c.seed, "cuda"))
+    except ValueError as e:
+        if "halo" not in str(e):
+            raise
+        print(f"mesh time 8 of {cfg_c.video_length} frames: {e}", flush=True)
+    else:
+        raise AssertionError("mesh time 8 of 16 frames trained a step")
+    if state.step != 0 or any(not torch.equal(v, before[k]) for k, v in state.vdis.state_dict().items()):
+        raise AssertionError("mesh time 8 changed the state before raising")
+
+    return {
+        "fused_err": fused_err, "dequant_err": dequant_err, "it_s": it_s,
+        "loss_rel": max(held["loss_rel_by_step"]),
+        "fused_launches": {"f32": [r["fused_launches"] for r in recs_a],
+                           "flagship": [r["fused_launches"] for r in recs_b]},
+        "dequant_launches": {"f32": [r["dequant_launches"] for r in recs_a],
+                             "flagship": [r["dequant_launches"] for r in recs_b]},
+    }
 
 
 def np_equal(a, b) -> bool:
@@ -2652,6 +2811,7 @@ def main() -> int:
     inference = phase_infer(run, evaluation["fingerprint"])
     served = phase_http(run, card)
     parallel = phase_data_parallel(run, card)
+    timed = phase_time(run, card, parallel)
     run["tmp"].cleanup()
     # the fused kernel's launches on the later paths, each counted from 0
     entry["eval_launches"] = evaluation["fused_launches"]
@@ -2660,12 +2820,16 @@ def main() -> int:
     # each kernel's launches on the data-parallel paths, per run and rank
     entry["data_parallel_launches"] = parallel["fused_launches"]
     dequant_entry["data_parallel_launches"] = parallel["dequant_launches"]
-    dequant_entry["max_abs_err"] = max(dequant_entry["max_abs_err"], parallel["dequant_err"])
+    # and on the time-sharded paths
+    entry["time_sharded_launches"] = timed["fused_launches"]
+    dequant_entry["time_sharded_launches"] = timed["dequant_launches"]
+    dequant_entry["max_abs_err"] = max(dequant_entry["max_abs_err"], parallel["dequant_err"],
+                                       timed["dequant_err"])
     # and its comparisons at each path's frame count
     entry["max_abs_err"] = max(entry["max_abs_err"], run["fused_err"], levers["fused_err"],
                                *(r["fused_err"] for r in datasets["runs"].values()),
                                evaluation["fused_err"], inference["fused_err"], served["fused_err"],
-                               parallel["fused_err"])
+                               parallel["fused_err"], timed["fused_err"])
 
     print(json.dumps({"kernels": [entry, dequant_entry]}))
     print(card_line())

@@ -10,8 +10,10 @@ Counterpart of ``dcvgan_tpu/cli/train.py``. Runs on ``cuda`` unless
 ``--device cpu`` is given. Under ``torchrun`` it first joins the process
 group the launcher describes (``parallel.init_distributed``: NCCL, one
 card per rank, ``cuda:{LOCAL_RANK}``; ``--dist-backend gloo`` with
-``--device`` puts every rank on that device) and trains data-parallel over
-the ranks, ``mesh`` and ``trainer.sync_batchnorm`` as the config sets them.
+``--device`` puts every rank on that device) and trains over the ranks,
+``mesh`` and ``trainer.sync_batchnorm`` as the config sets them: ``mesh:
+{data: D, time: N/D}`` on N ranks shards the video critics' frames over
+``N/D`` ranks per data row.
 When the config lists ``evaluation.metrics``, the trainer scores them at
 step 0 and every ``evaluation_interval`` steps against the training
 dataset.

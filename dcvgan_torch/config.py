@@ -11,9 +11,8 @@ dropped; any other unknown key raises, as the JAX loader raises.
 The opt-in levers (``shared_fakes``, ``critic_joint_batch``,
 ``critic_stat_reuse``, ``remat``, ``ggen_double_step``, ``norm: group``)
 load here and run in the train step, as do the data-parallel layouts
-(``sync_batchnorm``, ``mesh.data``, ``mesh.dcn``; ``parallel/mesh.py``).
-Only ``mesh.time > 1`` loads and is refused: the train step raises
-``NotImplementedError`` for it.
+(``sync_batchnorm``, ``mesh.data``, ``mesh.dcn``; ``parallel/mesh.py``)
+and the time-sharded critics (``mesh.time``; ``parallel/temporal.py``).
 """
 
 from __future__ import annotations
@@ -164,10 +163,11 @@ class EvaluationConfig:
 
 @dataclass
 class MeshConfig:
-    """The batch-parallel layout over the ranks of a process group
-    (``parallel.create_layout``): ``data`` ranks (-1: all of them, shrunk to
-    a divisor of the batch) times an outer ``dcn`` factor. ``time > 1``
-    (time-sharded critics) is not ported and the train step refuses it."""
+    """The layout over the ranks of a process group
+    (``parallel.create_layout``): ``data`` ranks (-1: all of them over
+    ``dcn * time``, shrunk to a divisor of the batch) times an outer ``dcn``
+    factor, times ``time`` ranks per data row that split the video critics'
+    frames (it needs ``trainer.sync_batchnorm`` and ``dcn`` 1)."""
 
     data: int = -1
     time: int = 1

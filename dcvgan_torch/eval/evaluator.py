@@ -12,10 +12,11 @@ Counterpart of ``dcvgan_tpu/eval/evaluator.py``. Two paths:
   mp4 files.
 
 Over data-parallel ranks (:meth:`Evaluator.set_layout`, the counterpart of
-``set_mesh``), each sampling round's batch splits over the ranks: every
-rank draws the round's seeded latents, samples and embeds its rows on its
-device, the features and probabilities go to rank 0 on the host group,
-rank 0 scores them and every rank returns rank 0's scores. JAX's
+``set_mesh``), each sampling round's batch splits over the data rows: every
+rank draws the round's seeded latents, samples and embeds its row's rows on
+its device, the features and probabilities go to rank 0 on the host group,
+rank 0 scores them (those of each row's first time rank) and every rank
+returns rank 0's scores. JAX's
 ``set_mesh`` runs one program over the chips of one process; with one
 process per card the process group takes its place.
 """
@@ -32,7 +33,13 @@ from dcvgan_torch import prng
 from dcvgan_torch.eval.features import FeatureExtractor, default_extractor
 from dcvgan_torch.eval.metrics import score_features
 from dcvgan_torch.eval.sampler import generate_samples
-from dcvgan_torch.parallel.mesh import SINGLE, Layout, broadcast_from_first, gather_to_first
+from dcvgan_torch.parallel.mesh import (
+    SINGLE,
+    Layout,
+    batch_size_divisor,
+    broadcast_from_first,
+    gather_to_first,
+)
 from dcvgan_torch.utils.video_np import videos_to_uint8
 
 
@@ -60,10 +67,11 @@ class Evaluator:
         """Split each sampling round of the device-resident path over the
         ranks of ``layout`` (see the module docstring); every rank must call
         :meth:`evaluate` then. The round's batch must split evenly."""
-        if self.batchsize % layout.world:
+        ways = batch_size_divisor(layout)
+        if self.batchsize % ways:
             raise ValueError(
                 f"evaluation.batchsize {self.batchsize} not divisible by the "
-                f"{layout.world} data-parallel ranks"
+                f"{ways} data-parallel ranks"
             )
         self.layout = layout
 
@@ -112,7 +120,7 @@ class Evaluator:
         num = self.num_samples if num is None else num
         lay = self.layout
         rounds = (num + self.batchsize - 1) // self.batchsize
-        local = self.batchsize // lay.world
+        local = self.batchsize // batch_size_divisor(lay)
         feats: List[torch.Tensor] = []
         probs: List[torch.Tensor] = []
         for i in range(rounds):
@@ -130,10 +138,12 @@ class Evaluator:
         out = []
         for parts in (feats, probs):
             x = torch.cat(parts).cpu().numpy()
-            # (ranks, rounds, rows, ...) on rank 0 -> rounds in order
+            # (ranks, rounds, rows, ...) on rank 0 -> each row's first time
+            # rank -> rounds in order
             x = gather_to_first(x.reshape((rounds, local) + x.shape[1:]), lay)
             if x is not None:
-                x = x.swapaxes(0, 1).reshape((rounds * self.batchsize,) + x.shape[3:])[:num]
+                x = x[:: lay.time].swapaxes(0, 1)
+                x = x.reshape((rounds * self.batchsize,) + x.shape[3:])[:num]
             out.append(x)
         return tuple(out)
 

@@ -23,7 +23,9 @@ argument: the train step decides which of its forwards do. Under data
 parallelism with global-batch statistics (:func:`sync_batch_norms`) a
 train-mode forward takes the mean and variance of the whole batch over the
 ranks of the default process group, as the JAX package's BatchNorm computes
-them for a batch sharded under ``jit``.
+them for a batch sharded under ``jit``. The video critics' BatchNorms are
+:class:`MaskedSyncBatchNorm`, whose ``masked`` forward takes the statistics
+of the valid frames of every rank for the time-sharded critics.
 
 **GroupNorm** (``trainer.norm: group``, :class:`ChannelGroupNorm`) takes
 BatchNorm's place at the same slots. It normalises each sample over groups
@@ -146,16 +148,26 @@ class _FlaxBatchNorm(Norm):
                 self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
         return out
 
-    def _global_batch_forward(self, x: torch.Tensor, update_stats: bool) -> torch.Tensor:
+    def _global_batch_forward(
+        self, x: torch.Tensor, update_stats: bool, mask_t: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
         """Statistics of the global batch: each rank sums x, x^2 and its
         count in float32, one differentiable SUM all-reduce of the packed
         ``[2C + 1]`` vector adds the ranks' sums, and mean = s1 / n,
-        var = s2 / n - mean^2 (flax's fast variance, clamped at 0)."""
+        var = s2 / n - mean^2 (flax's fast variance, clamped at 0). With
+        ``mask_t`` (a per-frame 0/1 mask of an NCDHW ``x``) only the frames
+        it keeps count."""
         c = x.shape[1]
         dims = [0] + list(range(2, x.dim()))
         xf = x.float()
-        count = xf.new_full((1,), x.numel() // c)
-        total = all_reduce_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]))
+        if mask_t is None:
+            xm = xf
+            count = xf.new_full((1,), x.numel() // c)
+        else:
+            m = mask_t.float()
+            xm = xf * m.view(1, 1, -1, 1, 1)
+            count = (m.sum() * (x.numel() // (c * x.shape[2]))).reshape(1)
+        total = all_reduce_sum(torch.cat([xm.sum(dims), (xm * xf).sum(dims), count]))
         n = total[2 * c]
         mean = total[:c] / n
         var = (total[c: 2 * c] / n - mean * mean).clamp(min=0.0)
@@ -191,14 +203,37 @@ class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
     pass
 
 
+class MaskedSyncBatchNorm(BatchNorm3d):
+    """The video critics' BatchNorm3d, which their time-sharded forward
+    calls as :meth:`masked` (the JAX package's ``MaskedSyncBatchNorm``).
+
+    Called as a :class:`Norm` it is :class:`BatchNorm3d`; the parameters,
+    buffers and state-dict names are the same in both modes, so one
+    checkpoint drives both. ``masked`` takes this rank's frames of the
+    clips, NCDHW, and a per-frame validity mask: in train mode the mean and
+    biased variance are those of the valid frames of every rank (the whole
+    data x time world: Σx, Σx² and the count in float32, one SUM
+    all-reduce), which are the unsharded critic's statistics; the running
+    statistics move with flax's momentum 0.9; eps 1e-5. Eval mode reads the
+    running statistics.
+    """
+
+    def masked(
+        self, x: torch.Tensor, mask_t: torch.Tensor, train: bool, update_stats: bool = True
+    ) -> torch.Tensor:
+        if not train:
+            return self(x, False)
+        return self._global_batch_forward(x, update_stats, mask_t)
+
+
 def batch_norm(num_features: int) -> BatchNorm2d:
     """BatchNorm over (N, H, W) with the reference's eps 1e-5."""
     return BatchNorm2d(num_features, eps=1e-5, momentum=BN_MOMENTUM)
 
 
-def batch_norm3d(num_features: int) -> BatchNorm3d:
+def batch_norm3d(num_features: int) -> MaskedSyncBatchNorm:
     """BatchNorm over (N, T, H, W) with the reference's eps 1e-5."""
-    return BatchNorm3d(num_features, eps=1e-5, momentum=BN_MOMENTUM)
+    return MaskedSyncBatchNorm(num_features, eps=1e-5, momentum=BN_MOMENTUM)
 
 
 GN_MAX_GROUPS = 32
@@ -293,14 +328,21 @@ class Noise(nn.Module):
     ) -> torch.Tensor:
         if not self.use_noise:
             return x
-        if noise is None and isinstance(generator, RowsOfBatch):
-            shape = (generator.total,) + tuple(x.shape[1:])
-            noise = torch.randn(shape, generator=generator.generator, device=x.device)[generator.rows]
-        elif noise is None:
-            noise = torch.randn(x.shape, generator=generator, device=x.device)
+        if noise is None:
+            noise = self.unit_draw(x.shape, generator, x.device)
         # sigma rounded to the compute dtype first, as the JAX package does
         sigma = torch.tensor(self.sigma).to(x.dtype).item()
         return x + noise.to(x.dtype) * sigma
+
+    @staticmethod
+    def unit_draw(
+        shape, generator: Optional[Union[torch.Generator, RowsOfBatch]], device
+    ) -> torch.Tensor:
+        """The unit-normal draw of a tensor of ``shape`` from ``generator``."""
+        if isinstance(generator, RowsOfBatch):
+            total = (generator.total,) + tuple(shape[1:])
+            return torch.randn(total, generator=generator.generator, device=device)[generator.rows]
+        return torch.randn(tuple(shape), generator=generator, device=device)
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Data parallelism over a ``torch.distributed`` process group: the
-counterpart of ``dcvgan_tpu/parallel`` (``mesh.py``; the time-sharded
-critics of ``temporal.py`` are not ported)."""
+"""Data and time parallelism over a ``torch.distributed`` process group:
+the counterpart of ``dcvgan_tpu/parallel`` (``mesh.py``, and
+``temporal.py``'s halo exchange for the time-sharded critics)."""
 
 from dcvgan_torch.parallel.mesh import (  # noqa: F401
     SINGLE,

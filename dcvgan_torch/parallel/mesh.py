@@ -1,5 +1,5 @@
-"""Process groups, the batch-parallel layout and the collectives of data
-parallelism.
+"""Process groups, the (dcn, data, time) layout and the collectives of
+data and time parallelism.
 
 Counterpart of ``dcvgan_tpu/parallel/mesh.py``. The JAX package runs one
 program over a ``jax.sharding.Mesh`` and lets XLA insert the reductions;
@@ -8,18 +8,21 @@ here every card runs its own process (``torchrun``), the processes form one
 
 - :func:`init_distributed` joins the group ``torchrun`` describes in the
   environment (``multihost_init``);
-- :func:`create_layout` sizes the batch-parallel axes with
+- :func:`create_layout` sizes the ``dcn``, ``data`` and ``time`` axes with
   ``create_mesh``'s rules and binds this process's rank to them;
-- :func:`shard_batch` keeps this rank's rows of a global batch,
+- :func:`shard_batch` keeps this rank's data row of a global batch,
   :func:`replicate` broadcasts rank 0's state, :func:`all_reduce_mean_`
   averages a list of tensors in one collective and :func:`all_reduce_sum`
   is a sum whose backward sums the gradient over the ranks.
 
+The ``time`` ranks of one data row hold the same rows of the batch, as JAX
+replicates the batch over its ``time`` axis; the time-sharded critics
+(``parallel/temporal.py``) split the clip's frames over them.
+
 One difference from ``create_mesh``: a layout that leaves ranks of the
 world unused raises. JAX takes a subset of the devices there (a debug batch
 of 4 on an 8-chip host uses 4); a process cannot sit out the collectives of
-the others. ``mesh.time > 1`` (the time-sharded critics) is not ported and
-raises ``NotImplementedError``.
+the others.
 """
 
 from __future__ import annotations
@@ -41,10 +44,6 @@ from dcvgan_torch.utils.device import resolve_device
 # the ranks, sample logging, a checkpoint write)
 TIMEOUT = datetime.timedelta(minutes=10)
 _LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
-TIME_NOT_PORTED = (
-    "mesh.time > 1 (time-sharded critics) is not ported yet: ROADMAP §A.2, "
-    "the next bring-up slice"
-)
 
 
 def init_distributed(
@@ -84,26 +83,42 @@ def init_distributed(
 
 @dataclass(frozen=True)
 class Layout:
-    """This process's place in the batch-parallel layout: ``dcn`` x ``data``
-    ranks, rank ``dcn_index * data + data_index``, as the
-    JAX mesh orders its devices. Collectives run over the default process
-    group; ``host_group`` is a gloo group over the same ranks for tensors
-    on the host (the default group itself under gloo)."""
+    """This process's place in the ``dcn`` x ``data`` x ``time`` layout: rank
+    ``(dcn_index * data + data_index) * time + time_index``, as the JAX mesh
+    orders its devices. The batch-parallel axes are ``dcn`` and ``data``;
+    the ``time`` ranks of one data row (:attr:`row`) hold the same rows.
+
+    Collectives run over the default process group; ``host_group`` is a
+    gloo group over the same ranks for tensors on the host (the default
+    group itself under gloo), ``time_group`` the group of this row's time
+    ranks (None when ``time`` is 1)."""
 
     dcn: int = 1
     data: int = 1
+    time: int = 1
     rank: int = 0
     host_group: Any = None
+    time_group: Any = None
 
     @property
     def world(self) -> int:
-        return self.dcn * self.data
+        return self.dcn * self.data * self.time
+
+    @property
+    def row(self) -> int:
+        """The batch-parallel index, ``dcn_index * data + data_index``."""
+        return self.rank // self.time
+
+    @property
+    def time_index(self) -> int:
+        return self.rank % self.time
 
     def rows(self, local: int, parts: int = 1, device=None) -> torch.Tensor:
         """This rank's rows of a global batch made of ``parts`` blocks of
-        ``local * world`` rows each (``[real; fake]`` is 2), as indices."""
-        n = local * self.world
-        own = torch.arange(self.rank * local, (self.rank + 1) * local, device=device)
+        ``local * dcn * data`` rows each (``[real; fake]`` is 2), as
+        indices: those of its data row."""
+        n = local * self.dcn * self.data
+        own = torch.arange(self.row * local, (self.row + 1) * local, device=device)
         return torch.cat([own + p * n for p in range(parts)])
 
 
@@ -119,17 +134,18 @@ def create_layout(
     world: Optional[int] = None,
     rank: Optional[int] = None,
 ) -> Layout:
-    """The (dcn, data) layout over ``world`` processes (default: the process
-    group's size, 1 without one), with ``create_mesh``'s rules.
+    """The (dcn, data, time) layout over ``world`` processes (default: the
+    process group's size, 1 without one), with ``create_mesh``'s rules.
 
-    ``data=-1`` -> world / dcn, shrunk to a divisor of ``batchsize``
-    when one is given; explicit arguments win over the config; ``dcn`` is an
-    outer batch-parallel factor with the same math as ``data``. Raises where
-    ``create_mesh`` raises, and also when the layout leaves ranks unused (see
-    the module docstring). ``time > 1`` raises ``NotImplementedError``.
+    ``data=-1`` -> world / (dcn * time), shrunk to a divisor of
+    ``batchsize`` when one is given; explicit arguments win over the
+    config; ``dcn`` is an outer batch-parallel factor with the same math as
+    ``data``. Raises where ``create_mesh`` raises, and also when the layout
+    leaves ranks unused (see the module docstring).
 
     Under a process group a ``Layout`` of more than one rank creates the
-    gloo ``host_group`` (NCCL groups), so every rank must call this.
+    gloo ``host_group`` (NCCL groups) and, with ``time > 1``, one time group
+    per data row, so every rank must call this.
     """
     if config is not None:
         data = config.mesh.data if data is None else data
@@ -137,35 +153,42 @@ def create_layout(
         dcn = config.mesh.dcn if dcn is None else dcn
         batchsize = config.batchsize if batchsize is None else batchsize
     dcn = 1 if dcn is None else dcn
-    if time is not None and time > 1:
-        raise NotImplementedError(TIME_NOT_PORTED)
+    time = 1 if time is None else time
     grouped = dist.is_initialized()
     n = world if world is not None else (dist.get_world_size() if grouped else 1)
     if data is None or data == -1:
-        if n % dcn:
-            raise ValueError(f"{n} devices not divisible by dcn*time={dcn}")
-        data = n // dcn
+        if n % (dcn * time):
+            raise ValueError(f"{n} devices not divisible by dcn*time={dcn * time}")
+        data = n // (dcn * time)
         if batchsize is not None:
             while data > 1 and batchsize % (dcn * data):
                 data -= 1
-    if dcn * data > n:
-        raise ValueError(f"mesh {dcn}x{data}x1 exceeds {n} visible devices")
+    used = dcn * data * time
+    if used > n:
+        raise ValueError(f"mesh {dcn}x{data}x{time} exceeds {n} visible devices")
     if batchsize is not None and batchsize % (dcn * data):
         raise ValueError(
             f"batchsize {batchsize} not divisible by batch-parallel mesh "
             f"size dcn*data={dcn * data}"
         )
-    if dcn * data < n:
+    if used < n:
         raise ValueError(
-            f"mesh {dcn}x{data}x1 leaves {n - dcn * data} of {n} ranks unused; "
-            f"a process cannot sit out the collectives (launch {dcn * data})"
+            f"mesh {dcn}x{data}x{time} leaves {n - used} of {n} ranks unused; "
+            f"a process cannot sit out the collectives (launch {used})"
         )
     if rank is None:
         rank = dist.get_rank() if grouped else 0
-    host_group = None
+    host_group = time_group = None
     if grouped and n > 1 and dist.get_backend() != "gloo":
         host_group = dist.new_group(backend="gloo")
-    return Layout(dcn=dcn, data=data, rank=rank, host_group=host_group)
+    if grouped and time > 1:
+        # every rank creates every row's group, in row order
+        for row in range(dcn * data):
+            group = dist.new_group(list(range(row * time, (row + 1) * time)))
+            if row == rank // time:
+                time_group = group
+    return Layout(dcn=dcn, data=data, time=time, rank=rank, host_group=host_group,
+                  time_group=time_group)
 
 
 def batch_size_divisor(layout: Layout) -> int:
@@ -174,8 +197,9 @@ def batch_size_divisor(layout: Layout) -> int:
 
 
 def shard_batch(batch: Dict[str, Any], layout: Layout) -> Dict[str, Any]:
-    """Rank r's rows ``r*B/W .. (r+1)*B/W`` of every array (numpy or torch)
-    of a global batch dict; the dict itself in a world of 1."""
+    """Data row r's rows ``r*B/W .. (r+1)*B/W`` of every array (numpy or
+    torch) of a global batch dict, W the batch-parallel ways; the dict
+    itself when W is 1."""
     w = batch_size_divisor(layout)
     if w == 1:
         return batch
@@ -184,7 +208,7 @@ def shard_batch(batch: Dict[str, Any], layout: Layout) -> Dict[str, Any]:
         if v.shape[0] % w:
             raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not split {w} ways")
         b = v.shape[0] // w
-        out[k] = v[layout.rank * b: (layout.rank + 1) * b]
+        out[k] = v[layout.row * b: (layout.row + 1) * b]
     return out
 
 
@@ -227,25 +251,27 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], layout: Layout) -> None:
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """SUM all-reduce over the default group whose backward all-reduces the
-    gradient: d(sum_r x_r)/dx_r passes every rank's upstream gradient."""
+    """SUM all-reduce over ``group`` whose backward all-reduces the gradient
+    over it: d(sum_r x_r)/dx_r passes every rank's upstream gradient."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
         y = x.clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
-    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+    def backward(ctx, grad: torch.Tensor):
         grad = grad.clone()
-        dist.all_reduce(grad)
-        return grad
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the ranks of the default group, differentiably."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (default: every rank),
+    differentiably."""
+    return _AllReduceSum.apply(x, group)
 
 
 def gather_to_first(x: np.ndarray, layout: Layout) -> Optional[np.ndarray]:

@@ -67,8 +67,21 @@ optimizer update, before Adam's step (``pmean`` precedes the optax chain):
   phase for the critics, after the G phase for the generators.
 
 The EMA needs no collective: the parameters stay replica-identical.
-``mesh.time > 1`` (the time-sharded critics) is not ported;
-:meth:`DCVGAN._refuse_levers` raises for it.
+
+**Time sharding** (``mesh.time > 1``, the JAX ``time_sharded_train_step``):
+the layout's ``time`` ranks of a data row hold the row's batch; ingest, the
+generators and the image critic run on it on every one of them, and the
+video and gradient critics take the rank's ``T / time`` frames of the real
+and fake clips and run time-sharded (``models/discriminators.py``), so
+every time rank gets the row's whole logits and the row's losses. It needs
+global-batch statistics (``trainer.sync_batchnorm: true``); the
+generators' and image critic's BatchNorms sum over every rank, which counts
+each row ``time`` times in both the sums and the count, so their
+statistics are the row-deduplicated ones. The gradients are averaged over
+all ``dcn * data * time`` ranks in the one all-reduce: each collective's
+backward passes every rank's share, and the ranks' summed gradient is
+``time`` times the sum over the rows, so the average is the unsharded
+step's gradient.
 
 Parameters, gradients and Adam's moments are float32; the forward and
 backward passes run in the compute dtype (``models/layers.py``). The step
@@ -107,7 +120,7 @@ from dcvgan_torch.models.layers import (
     sync_batch_norms,
 )
 from dcvgan_torch.ops.dequant import dequantize_video, dequantize_videos
-from dcvgan_torch.parallel.mesh import SINGLE, TIME_NOT_PORTED, Layout, all_reduce_mean_
+from dcvgan_torch.parallel.mesh import SINGLE, Layout, all_reduce_mean_
 from dcvgan_torch.train.state import (
     GENERATOR_NAMES,
     MODEL_NAMES,
@@ -310,9 +323,35 @@ class DCVGAN:
         return self.config.trainer.sync_batchnorm and self.layout.world > 1
 
     def _refuse_levers(self) -> None:
-        """The time-sharded critics (``mesh.time > 1``) are not ported."""
-        if self.config.mesh.time > 1:
-            raise NotImplementedError(TIME_NOT_PORTED)
+        """Raises for the settings the step does not take: ``mesh.time > 1``
+        without ``time_sharded_train_step``'s conditions (its error texts),
+        or on a layout without those time ranks (``trainer.norm: group``
+        under ``mesh.time > 1`` fails the config's validation, as in JAX)."""
+        cfg, lay = self.config, self.layout
+        if cfg.mesh.time == 1 and lay.time == 1:
+            return
+        if not cfg.trainer.sync_batchnorm:
+            raise ValueError("mesh.time > 1 requires trainer.sync_batchnorm=true")
+        if cfg.mesh.dcn > 1 or lay.dcn > 1:
+            raise NotImplementedError(
+                "mesh.time > 1 with mesh.dcn > 1 is not supported: the "
+                "time-sharded critics' inner shard_map would need the dcn "
+                "axis threaded through its halo exchange"
+            )
+        if lay.time != cfg.mesh.time:
+            raise ValueError(
+                f"mesh.time={cfg.mesh.time} but this process's layout has {lay.time} "
+                f"time ranks: launch dcn*data*time ranks and build the layout "
+                f"with create_layout(config)"
+            )
+        # the critics' own checks, before the step computes anything
+        t = cfg.video_length
+        if t % lay.time:
+            raise ValueError(f"T={t} not divisible by time axis {lay.time}")
+        if t // lay.time < 3:
+            raise ValueError(
+                f"local time extent {t // lay.time} < halo 3; use fewer time shards"
+            )
 
     def ingest(self, batch: Mapping[str, Union[torch.Tensor, np.ndarray]]) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(xg_real, xc_real)`` in the compute dtype on the device, from a
@@ -367,8 +406,10 @@ class DCVGAN:
         # under global-batch statistics every draw is the global batch's, of
         # which this rank keeps ``rows``; else the draws are this rank's
         wide = self.global_batch
-        n = b * lay.world if wide else b
+        n = b * lay.dcn * lay.data if wide else b
         rows = lay.rows(b, device=self.device) if wide else None
+        t_local = cfg.video_length // lay.time
+        t0 = lay.time_index * t_local
 
         t_rand = draws.t_rand
         if t_rand is None:
@@ -411,12 +452,17 @@ class DCVGAN:
         def critic(name, xg, xc, train, update_stats, noise, k, parts=1):
             if name == "idis":
                 xg, xc = frame(xg), frame(xc)
+            elif lay.time > 1:
+                # this rank's frames; the critic draws its noise at the
+                # unsharded shape and keeps its frames
+                xg, xc = xg[:, t0: t0 + t_local], xc[:, t0: t0 + t_local]
             if wide:
                 own = rows if parts == 1 else lay.rows(b, parts, self.device)
                 noise = {layer: d[own] for layer, d in noise.items()} if noise else None
                 k = RowsOfBatch(k, own, parts * n)
             return getattr(state, name)(
-                xg, xc, train=train, update_stats=update_stats, noise=noise, generator=k
+                xg, xc, train=train, update_stats=update_stats, noise=noise, generator=k,
+                layout=None if name == "idis" else lay,
             )
 
         # ------------------------------------------------ phase discriminator

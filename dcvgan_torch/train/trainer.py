@@ -18,9 +18,9 @@ the JAX trainer's:
 
 Under a process group (``parallel/mesh.py``; ``torchrun`` and
 ``cli.train``) every rank runs this loop on its own device: the trainer
-builds the layout from ``config.mesh``, gives the loader this rank's slice
-of each global batch, broadcasts rank 0's initial state and lets the train
-step reduce. Only rank 0 logs, writes TensorBoard, samples and writes
+builds the layout from ``config.mesh``, gives the loader this rank's data
+row's slice of each global batch (the ``time`` ranks of a row get the same
+one), broadcasts rank 0's initial state and lets the train step reduce. Only rank 0 logs, writes TensorBoard, samples and writes
 checkpoints; the others wait at a barrier until each checkpoint is on
 disk. On resume rank 0 restores its latest checkpoint and the
 broadcast of its state carries it to the others. The
@@ -130,7 +130,7 @@ class Trainer:
             batchsize=config.batchsize,
             n_workers=config.dataset.n_workers,
             seed=config.seed,
-            process_index=self.layout.rank,
+            process_index=self.layout.row,
             process_count=divisor,
             shard_divisor=divisor,
         )
@@ -302,7 +302,8 @@ class Trainer:
         name = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu"
         logger.debug(f"device: {self.device} ({name})", 1)
         lay = self.layout
-        logger.debug(f"ranks: {lay.world} (dcn {lay.dcn} x data {lay.data}), "
+        axes = f"dcn {lay.dcn} x data {lay.data}" + (f" x time {lay.time}" if lay.time > 1 else "")
+        logger.debug(f"ranks: {lay.world} ({axes}), "
                      f"{'global-batch' if self.gan.global_batch else 'per-rank'} BatchNorm", 1)
         logger.debug("(start training)")
 

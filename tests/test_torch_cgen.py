@@ -18,6 +18,9 @@ from dcvgan_torch.models.layers import cast_for_compute
 from dcvgan_torch.ops.fused_block import fused_norm_act_conv
 from dcvgan_tpu.models import ColorVideoGenerator as JaxCGen
 from torch_port_util import ATOL_F32, NGF, nchw, nhwc, randomize_tree, within
+from torch_port_util import one_intra_op_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 DZ, N = 4, 4
 # bf16 against JAX in bf16: the port normalises the down path in f32 and

@@ -25,6 +25,9 @@ from dcvgan_torch.train.checkpoint import CheckpointManager
 from dcvgan_torch.train.step import DCVGAN
 from dcvgan_tpu.cli import evaluate as jax_cli_evaluate
 from dcvgan_tpu.compat.torch_import import gru_cell
+from torch_port_util import one_intra_op_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 REPO = Path(__file__).resolve().parents[1]
 DEBUG = REPO / "configs" / "debug-mock-depth.yml"

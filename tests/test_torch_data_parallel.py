@@ -28,8 +28,9 @@ from torch_port_util import (
     ATOL_F32, LOSSES, LR, MODEL_NAMES, WORLD, DataParallelCase, no_persistent_compile_cache,  # noqa: F401
     replicas_equal, step_batch, step_draws, within,
 )
+from torch_port_util import one_intra_op_thread  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("no_persistent_compile_cache")
+pytestmark = pytest.mark.usefixtures("no_persistent_compile_cache", "one_intra_op_thread")
 
 
 @pytest.fixture(scope="module")

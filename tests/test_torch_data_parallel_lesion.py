@@ -22,8 +22,9 @@ from torch_port_util import (
     MODEL_NAMES, DataParallelCase, no_persistent_compile_cache,  # noqa: F401
     replicas_equal, step_batch,
 )
+from torch_port_util import one_intra_op_thread  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("no_persistent_compile_cache")
+pytestmark = pytest.mark.usefixtures("no_persistent_compile_cache", "one_intra_op_thread")
 # what the comparisons hold intact ranks to: the gradients within 1e-4
 # relative L2 on the CPU (test_torch_data_parallel.py); on the card the
 # first step's gradients within 2e-2 and the updates within 0.3

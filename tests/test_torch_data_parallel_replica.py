@@ -23,8 +23,9 @@ from torch_dist_util import run_ranks
 from torch_port_util import (
     WORLD, DataParallelCase, no_persistent_compile_cache, step_draws,  # noqa: F401
 )
+from torch_port_util import one_intra_op_thread  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("no_persistent_compile_cache")
+pytestmark = pytest.mark.usefixtures("no_persistent_compile_cache", "one_intra_op_thread")
 TRIO = {"shared_fakes": True, "critic_joint_batch": True, "critic_stat_reuse": True}
 
 

@@ -19,6 +19,9 @@ from dcvgan_torch.models.layers import place_for_training
 from dcvgan_tpu.compat import gdis_from_torch, idis_from_torch, vdis_from_torch
 from dcvgan_tpu.models import GradientDiscriminator, ImageDiscriminator, VideoDiscriminator
 from torch_port_util import ATOL_F32, as_tensors, randomize_tree, record_jax_draws, within
+from torch_port_util import one_intra_op_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 NDF, B, T = 8, 2, 16
 S2, S3 = 64, 32  # frame size for the image critic, and for the two video critics

@@ -23,6 +23,9 @@ from dcvgan_tpu.eval import features as jax_features
 from dcvgan_tpu.eval import metrics as jax_metrics
 from dcvgan_tpu.utils.video_np import videos_to_uint8
 from torch_port_util import within
+from torch_port_util import one_intra_op_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 REPO = Path(__file__).resolve().parents[1]
 ASSET = REPO / "assets" / "extractor-synthetic.npz"

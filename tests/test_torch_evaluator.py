@@ -24,6 +24,9 @@ from dcvgan_torch.train.step import DCVGAN
 from dcvgan_torch.train.trainer import Trainer
 from dcvgan_tpu.eval.evaluator import Evaluator as JaxEvaluator
 from dcvgan_tpu.eval.features import FeatureExtractor as JaxExtractor
+from torch_port_util import one_intra_op_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 REPO = Path(__file__).resolve().parents[1]
 ASSET = REPO / "assets" / "extractor-synthetic.npz"

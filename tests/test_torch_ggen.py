@@ -15,6 +15,9 @@ from dcvgan_torch.models.ggen import GeometricVideoGenerator as PortGGen
 from dcvgan_torch.models.layers import cast_for_compute
 from dcvgan_tpu.models import GeometricVideoGenerator as JaxGGen
 from torch_port_util import ATOL_F32, NGF, randomize_tree, within
+from torch_port_util import one_intra_op_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 DZC, DZM, B, T = 6, 4, 2, 4
 # bf16 against JAX in bf16: the GRU cell and the BatchNorm+ReLU stages round

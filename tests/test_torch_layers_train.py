@@ -25,6 +25,9 @@ from dcvgan_tpu.models import GeometricVideoGenerator as JaxGGen
 from dcvgan_tpu.models.layers import batch_norm as jax_batch_norm
 from dcvgan_tpu.train.step import make_optimizer as jax_make_optimizer
 from torch_port_util import ATOL_F32, NGF, nchw, randomize_tree, record_jax_draws, within
+from torch_port_util import one_intra_op_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 DZC, DZM, DZ_COLOR, B, T = 6, 4, 4, 2, 4
 CPU = torch.device("cpu")

@@ -2,9 +2,11 @@
 ``dcvgan_tpu.parallel``, on the virtual CPU devices and gloo ranks.
 
 - ``create_layout`` against ``create_mesh`` on a table of (world, data,
-  time, dcn, batch), raises included; where JAX takes a device subset the
-  port raises, and ``time > 1`` raises ``NotImplementedError``;
-- ``shard_batch``: rank r keeps rows ``r*B/W .. (r+1)*B/W``;
+  time, dcn, batch), raises included: the rank order of the mesh's
+  devices, ``time > 1`` too; where JAX takes a device subset the port
+  raises;
+- ``shard_batch``: rank r keeps rows ``r*B/W .. (r+1)*B/W``, the time ranks
+  of a data row the row's;
 - the loader's rank slices against the JAX loader's process slices;
 - the BatchNorm with global-batch statistics, forward and gradients, over
   2 ranks against flax's BatchNorm on a batch sharded under ``jit``;
@@ -21,12 +23,15 @@ from dcvgan_torch.data.dataset import VideoDataset as PortDataset
 from dcvgan_torch.data.loader import VideoLoader as PortLoader
 from dcvgan_torch.data.preprocess import get_preprocessor
 from dcvgan_torch.parallel import create_layout, init_distributed, shard_batch
-from dcvgan_torch.parallel.mesh import TIME_NOT_PORTED, batch_size_divisor
+from dcvgan_torch.parallel.mesh import batch_size_divisor
 from dcvgan_tpu.data.dataset import VideoDataset as JaxDataset
 from dcvgan_tpu.data.loader import VideoLoader as JaxLoader
 from dcvgan_tpu.parallel.mesh import create_mesh
 from torch_dist_util import run_ranks
 from torch_port_util import GLOBAL_B, WORLD, within
+from torch_port_util import one_intra_op_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 # (world, data, time, dcn, batchsize)
 LAYOUTS = [
@@ -39,6 +44,7 @@ LAYOUTS = [
     (8, 9, 1, 1, None), (8, 8, 1, 1, 2), (8, -1, 1, 3, None), (4, 4, 1, 2, 8), (1, 4, 1, 1, 4),
     # time > 1
     (8, 4, 2, 1, 8), (8, -1, 2, 1, None), (8, 9, 2, 1, None),
+    (4, 1, 4, 1, 2), (8, 2, 2, 2, 4), (8, -1, 4, 1, 6), (8, -1, 3, 1, None), (4, -1, 2, 1, 3),
 ]
 
 
@@ -47,10 +53,6 @@ def test_layout_follows_create_mesh(devices, world, data, time, dcn, batch):
     def port(rank=0):
         return create_layout(data=data, time=time, dcn=dcn, batchsize=batch, world=world, rank=rank)
 
-    if time > 1:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port()
-        return
     try:
         mesh = create_mesh(data=data, time=time, dcn=dcn, batchsize=batch, devices=devices[:world])
     except ValueError as e:
@@ -64,10 +66,15 @@ def test_layout_follows_create_mesh(devices, world, data, time, dcn, batch):
             port()
         return
     layouts = [port(r) for r in range(world)]
+    # rank r is device r of the mesh: its position is its coordinates
+    ids = np.vectorize(lambda d: d.id)(mesh.devices)
     for r, lay in enumerate(layouts):
-        assert shape["time"] == 1
-        assert (lay.dcn, lay.data, lay.rank) == (shape.get("dcn", 1), shape["data"], r)
-        assert lay.world == world and batch_size_divisor(lay) == world
+        assert (lay.dcn, lay.data, lay.time, lay.rank) == (
+            shape.get("dcn", 1), shape["data"], shape["time"], r)
+        coords = np.argwhere(ids == devices[r].id)[0]
+        assert lay.row == int(np.ravel_multi_index(coords[:-1], ids.shape[:-1]))
+        assert lay.time_index == coords[-1]
+        assert lay.world == world and batch_size_divisor(lay) == world // shape["time"]
 
 
 def test_layout_reads_the_config_and_explicit_arguments_win():
@@ -79,9 +86,10 @@ def test_layout_reads_the_config_and_explicit_arguments_win():
     lay = create_layout(cfg, data=4, dcn=1, world=4)
     assert (lay.dcn, lay.data) == (1, 4)
     cfg.mesh.time = 2
-    with pytest.raises(NotImplementedError) as e:
+    with pytest.raises(ValueError, match="mesh 2x2x2 exceeds 4 visible devices"):
         create_layout(cfg, world=4)
-    assert str(e.value) == TIME_NOT_PORTED
+    lay = create_layout(cfg, world=8, rank=5)
+    assert (lay.dcn, lay.data, lay.time, lay.row, lay.time_index) == (2, 2, 2, 2, 1)
     assert create_layout(cfg, time=1, world=4).data == 2
 
 
@@ -98,6 +106,11 @@ def test_shard_batch_keeps_the_ranks_rows(world):
     np.testing.assert_array_equal(np.concatenate(seen), batch["color"])
     lay = create_layout(world=4, rank=1)
     assert lay.rows(2).tolist() == [2, 3] and lay.rows(2, parts=2).tolist() == [2, 3, 10, 11]
+    # data 2 x time 2: ranks 2 and 3 hold data row 1
+    for r in (2, 3):
+        timed = create_layout(data=2, time=2, world=4, rank=r)
+        assert timed.rows(2).tolist() == [2, 3] and timed.rows(2, parts=2).tolist() == [2, 3, 6, 7]
+        np.testing.assert_array_equal(shard_batch(batch, timed)["color"], batch["color"][4:])
     with pytest.raises(ValueError, match="split"):
         shard_batch({"x": np.zeros(6)}, lay)
 

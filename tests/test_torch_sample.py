@@ -19,6 +19,9 @@ from dcvgan_torch.train.step import DCVGAN, Latents
 from dcvgan_tpu.models import ColorVideoGenerator as JaxCGen
 from dcvgan_tpu.models import GeometricVideoGenerator as JaxGGen
 from torch_port_util import ATOL_F32, NGF, flatten_tree, randomize_tree, within
+from torch_port_util import one_intra_op_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 DZC, DZM, DZ_COLOR, B, T = 6, 4, 4, 2, 4
 # bf16 end to end: the geometry differences of test_torch_ggen feed the

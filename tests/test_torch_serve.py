@@ -12,6 +12,9 @@ from dcvgan_torch.cli.serve import GenerationServer, Sink, quantize, serve
 from dcvgan_torch.config import ExperimentConfig
 from dcvgan_torch.train.step import DCVGAN
 from torch_port_util import NGF
+from torch_port_util import one_intra_op_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 T = 4
 TINY = {

@@ -34,6 +34,9 @@ from dcvgan_tpu.config import ExperimentConfig as JaxConfig
 from dcvgan_tpu.io.video import read_video as jax_read_video
 from dcvgan_tpu.train.step import DCVGAN as JaxDCVGAN
 from torch_port_util import NGF
+from torch_port_util import one_intra_op_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 T = 4
 TINY = {

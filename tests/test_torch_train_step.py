@@ -51,6 +51,9 @@ from torch_port_util import (
     ATOL_F32, LOSSES, LR, flatten_tree, from_torch, gradients_close, jax_state, jax_trees,
     numpy_tree, port_state, port_tree, randomize_tree, run_pair, step_batch, step_configs, within,
 )
+from torch_port_util import one_intra_op_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 
 # ----------------------------------------------------- f32, EMA, uint8 batch
@@ -263,14 +266,16 @@ def test_whole_state_crosses_from_jax_with_adam_moments_and_ema():
     ("mesh", "time", 2), ("mesh", "data", 4), ("mesh", "dcn", 2),
 ])
 def test_each_lever_raises_not_implemented(section, key, value):
-    """Only ``mesh.time > 1`` (the time-sharded critics) is still refused.
-    The data-parallel settings train: one process is a world of one rank,
-    whatever the mesh asks (the trainer's ``create_layout`` checks the mesh
-    against the world), and per-replica statistics there are the rank's own."""
+    """``mesh.time > 1`` is refused in a world of one rank: the time-sharded
+    critics need the layout's time ranks (``test_torch_time_sharded_step.py``
+    trains them). The data-parallel settings train: one process is a world
+    of one rank, whatever the mesh asks (the trainer's ``create_layout``
+    checks the mesh against the world), and per-replica statistics there
+    are the rank's own."""
     _, pcfg = step_configs(**{section: {key: value}})
     gan = PortGAN(pcfg, device="cpu")
     if key == "time":
-        with pytest.raises(NotImplementedError, match="mesh.time"):
+        with pytest.raises(ValueError, match="mesh.time=2 but this process's layout has 1 time"):
             gan.train_step(gan.init_state(0), step_batch(0, np.uint8), port_prng.base_key(0))
         return
     _, m = gan.train_step(gan.init_state(0), step_batch(0, np.uint8), port_prng.base_key(0))

@@ -22,7 +22,10 @@ from dcvgan_torch.config import load_config
 from dcvgan_torch.logging.logger import Logger
 from dcvgan_torch.train.checkpoint import CheckpointManager
 from dcvgan_torch.train.step import DCVGAN
-from dcvgan_torch.train.trainer import LOSS_NAMES, Trainer
+from dcvgan_torch.train.trainer import Trainer
+from torch_port_util import one_intra_op_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 REPO = Path(__file__).resolve().parents[1]
 DEBUG = REPO / "configs" / "debug-mock-depth.yml"

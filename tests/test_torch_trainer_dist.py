@@ -26,6 +26,9 @@ from dcvgan_torch.train.checkpoint import CheckpointManager
 from dcvgan_torch.train.step import DCVGAN
 from torch_dist_util import run_ranks
 from torch_port_util import LOSSES, MODEL_NAMES, replicas_equal, within
+from torch_port_util import one_intra_op_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 REPO = Path(__file__).resolve().parents[1]
 DEBUG = REPO / "configs" / "debug-mock-depth.yml"

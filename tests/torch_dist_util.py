@@ -1,19 +1,21 @@
 """Gloo ranks for the port's data-parallel tests.
 
 :func:`run_ranks` starts ``world`` Python processes that join one gloo group
-on a free local port and each run one *case* of this module, a function
+and each run one *case* of this module, a function
 ``case(rank, world, payload) -> result``; payloads and results cross
-through ``torch.save`` files in a temporary directory. A rank sets
-``torch.set_num_threads(1)``, imports nothing of JAX, and the group and
-every process are bounded by timeouts, so that a hung collective fails its
-test.
+through ``torch.save`` files in a temporary directory. The group meets at a
+``TCPStore`` that the calling process serves on a port the OS picks and
+holds until the ranks end, so two launches (of two test workers) can never
+share a port. A rank sets ``torch.set_num_threads(1)``, imports nothing of
+JAX, and the group and every process are bounded by timeouts, so that a
+hung collective fails its test.
 """
 
 from __future__ import annotations
 
 import datetime
+import importlib
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -33,20 +35,20 @@ torch_dist_util._rank_main(*sys.argv[3:])
 """
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def run_ranks(case: str, world: int, payload, workdir: Path, timeout: float = 120.0) -> list:
     """Each rank's result of ``case`` over ``world`` gloo ranks, in rank
-    order. Raises with the failing rank's output if any rank fails or the
-    ranks outlive ``timeout``; every process is ended either way."""
+    order: a function of this module, or ``module.function`` of another
+    module of ``tests/``. Raises with the failing rank's output if any rank
+    fails or the ranks outlive ``timeout``; every process is ended either
+    way."""
+    import torch.distributed as dist
+
     workdir.mkdir(parents=True, exist_ok=True)
     src = workdir / f"{case}.in.pt"
     torch.save(payload, src)
-    port = str(free_port())
+    store = dist.TCPStore("127.0.0.1", 0, world, is_master=True, wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    port = str(store.port)
     env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     procs, logs = [], []
     for rank in range(world):
@@ -70,6 +72,7 @@ def run_ranks(case: str, world: int, payload, workdir: Path, timeout: float = 12
             if p.poll() is None:
                 p.kill()
             p.wait()
+        del store
     for rank, (p, log) in enumerate(zip(procs, logs)):
         log.seek(0)
         text = log.read()
@@ -84,12 +87,16 @@ def _rank_main(case, src, out, rank, world, port) -> None:
 
     torch.set_num_threads(1)
     rank, world = int(rank), int(world)
-    dist.init_process_group(
-        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S),
-    )
+    timeout = datetime.timedelta(seconds=GROUP_TIMEOUT_S)
+    store = dist.TCPStore("127.0.0.1", int(port), world, is_master=False, timeout=timeout)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world, timeout=timeout)
     try:
-        result = globals()[case](rank, world, torch.load(src, weights_only=False))
+        if "." in case:
+            module, name = case.rsplit(".", 1)
+            fn = getattr(importlib.import_module(module), name)
+        else:
+            fn = globals()[case]
+        result = fn(rank, world, torch.load(src, weights_only=False))
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -143,7 +150,7 @@ def train_steps(rank, world, payload) -> dict:
     from dcvgan_torch.train.step import DCVGAN
 
     if payload.get("local_backward"):
-        mesh._AllReduceSum.backward = staticmethod(lambda ctx, grad: grad.clone())
+        mesh._AllReduceSum.backward = staticmethod(lambda ctx, grad: (grad.clone(), None))
 
     cfg = ExperimentConfig.from_dict(payload["config"])
     layout = create_layout(cfg, **payload.get("mesh", {}))

@@ -212,12 +212,12 @@ def step_configs(**over):
     return jcfg, pcfg
 
 
-def step_batch(seed, dtype, batch: int = B):
+def step_batch(seed, dtype, batch: int = B, size: int = S):
     """A loader batch of uint8 (or the same dequantised to float32) colour
     and depth videos."""
     rng = np.random.default_rng(seed)
-    u8 = {"color": rng.integers(0, 256, (batch, T, S, S, 3), dtype=np.uint8),
-          "depth": rng.integers(0, 256, (batch, T, S, S, 1), dtype=np.uint8)}
+    u8 = {"color": rng.integers(0, 256, (batch, T, size, size, 3), dtype=np.uint8),
+          "depth": rng.integers(0, 256, (batch, T, size, size, 1), dtype=np.uint8)}
     if dtype == np.uint8:
         return u8
     return {k: v.astype(np.float32) / np.float32(127.5) - np.float32(1.0) for k, v in u8.items()}
@@ -269,9 +269,10 @@ def port_state(pgan, jstate):
     return state
 
 
-def step_draws(gan, state, key, step: int, batch: int = B, replica=None):
+def step_draws(gan, state, key, step: int, batch: int = B, replica=None, size: int = S):
     """The draws ``gan.train_step`` makes at 1-based ``step`` under ``key``
-    for a batch of ``batch``, as the port's ``StepDraws``: under
+    for a batch of ``batch`` of ``size``-pixel frames, as the port's
+    ``StepDraws``: under
     ``shared_fakes`` no ``d_fake`` latents, under ``critic_joint_batch`` the
     critics' D-phase noise of the ``joint`` stream for the 2B batch. With
     ``replica`` r, those of replica r of ``sharded_train_step``: its streams
@@ -307,7 +308,7 @@ def step_draws(gan, state, key, step: int, batch: int = B, replica=None):
         return lat, as_tensors(dc["dropout"])
 
     def noise(name, k, batch=B):
-        lead = (batch, S, S) if name == "idis" else (batch, T, S, S)
+        lead = (batch, size, size) if name == "idis" else (batch, T, size, size)
         ms = getattr(state, name)
         _, d = record_jax_draws(lambda: gan.modules[name].apply(
             {"params": ms.params, "batch_stats": ms.batch_stats},

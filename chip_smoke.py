@@ -13,14 +13,22 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
    and at edge shapes, and time kernel, plain version, one library call
    where there is one, and the bound; the bf16 ``fused_norm_act_conv`` is
    timed on its TMA route and on the mma.sync kernel of the other route in
-   turns, a train step's two ``dequant`` batches in one launch and launched
-   per tensor in turns;
+   turns, the f32 one on its tf32x3 route (the TMA kernel on
+   error-compensated TF32) and on the FMA kernel of the other f32 route in
+   turns, beside the bound of three TF32 products on the tensor cores and
+   the FFMA floor, each route asserted at the flagship sites and at edge
+   shapes (slope 0.2 and 0.01 with shift + 1), a train step's two
+   ``dequant`` batches in one launch and launched per tensor in turns;
 4. the serving path: ``dcvgan_torch.cli.serve``'s ``serve()`` and
    ``GenerationServer.generate`` at the flagship width
    (``configs/mug-depth.yml``: depth, ngf 64, bf16, batch 256, seeded weights),
    with every launch counter set to 0 just before and read just after;
 5. a profile of one sampling round: device time by kernel kind and the
-   device's idle share;
+   device's idle share; then the f32 serving path: ``serve()`` at the same
+   widths with ``trainer.precision: float32`` (batch 256), the fused f32
+   colour generator held to its plain forward at the f32 tolerance, and
+   every ``fused_norm_act_conv`` launch counted by route from 0 (5 a cgen
+   forward, all tf32x3), with its videos/s;
 6. the training path: ``dcvgan_torch.cli.train``'s ``build_dataset`` and
    ``Trainer.train()`` at the same width (batch 20, bf16 compute over f32
    parameters) on the self-generating ``synthetic`` dataset, uint8 batches
@@ -29,7 +37,8 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
    (``fused_norm_act_conv`` held against its plain version first at the
    frame count of ``log_samples``' round, as before each later path at its
    own); then a seeded replay of 3 steps, a uint8 against float batch, a
-   checkpoint round trip, and a profile of one step;
+   checkpoint round trip, a profile of one step, and one epoch with
+   ``trainer.profile: true`` whose trace must name ``dequant_kernel``;
 7. the lever path: the four repo configs that set a train-step lever
    (``demo-synthetic-{fastpath,quirks,sharedfakes}.yml`` and
    ``headtohead-tpu-seed0-10k-stable-gn.yml``, ``trainer.norm: group``) as
@@ -138,6 +147,7 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published dense peaks (NVIDIA data sheet)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32 = 495e12  # TF32 on the tensor cores: the tf32x3 route's three products
 PEAK_BYTES_PER_S = 3.35e12
 
 N_FRAMES = 4096  # batch 256 x 16 frames: the flagship serve call
@@ -186,16 +196,19 @@ def cuda_ms(fn, runs: int = 5, window_ms: float = 20.0) -> float:
     return statistics.median(times)
 
 
-def site_bound(n: int, h: int, c: int, cout: int, dtype: torch.dtype, xn: bool):
+def site_bound(n: int, h: int, c: int, cout: int, dtype: torch.dtype, xn: bool, tf32x3: bool = False):
     """(bound_ms, bound_by, flops, bytes) of one call: each input read once,
     each output written once; operations over the taps that touch the image
-    (padding taps multiply zeros), at the card's peak for the dtype."""
+    (padding taps multiply zeros), at the card's peak for the dtype: bf16
+    on the tensor cores, f32 on the CUDA cores (FFMA), or with ``tf32x3``
+    the f32 route's three TF32 products for each f32 one on the tensor
+    cores."""
     es = torch.finfo(dtype).bits // 8
     oh = h // 2
     taps = (4 * oh - 2) ** 2  # non-padding taps summed over the output pixels
     flops = 2 * n * cout * c * taps
     nbytes = (n * h * h * c * (2 if xn else 1) + 16 * c * cout + n * oh * oh * cout) * es + 8 * c
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = (3 * flops / PEAK_TF32 if tf32x3 else flops / PEAK_FLOPS[dtype]) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
@@ -210,6 +223,17 @@ EDGE_CASES = [
     ("OH*OW = 15, tiles across images", 40, 6, 10, 64, 64, "tma"),
     ("C = 12: the mma.sync route", 3, 8, 8, 12, 8, "mma_sync"),
 ]
+# the same for f32: the TMA kernel's tf32x3 route (32 channels a stage) and
+# the FMA kernel of the shapes it cannot take
+F32_EDGE_CASES = [
+    ("partial last tile, odd tile count", 3, 16, 16, 128, 256, "tf32x3"),
+    ("down5's 2x2 input, 3 tiles", 300, 2, 2, 256, 256, "tf32x3"),
+    ("OW < 8, W != H", 5, 4, 12, 64, 64, "tf32x3"),
+    ("C = 8 (debug-mock-depth's ngf), a quarter chunk", 7, 6, 6, 8, 16, "tf32x3"),
+    ("OH*OW = 15, tiles across images", 40, 6, 10, 64, 64, "tf32x3"),
+    ("Cout = 8: the FMA route", 3, 8, 8, 12, 8, "f32"),
+]
+EDGE_CASES_BY_DTYPE = {torch.bfloat16: EDGE_CASES, torch.float32: F32_EDGE_CASES}
 
 
 def kernel_inputs(n, h, c, cout, dtype, seed, shift_offset=0.0, w=None):
@@ -304,17 +328,19 @@ def phase_kernels() -> dict:
                          dtype, True, slope=0.01, shift_offset=1.0)
         errs.append(e)
         print(f"check slope 0.01 shift+1 {str(dtype)[6:]}: max|diff| {e:.3e}", flush=True)
-    for label, n, h, w, c, cout, want_route in EDGE_CASES:
-        x, _, _, wt = kernel_inputs(n, h, c, cout, torch.bfloat16, seed=0, w=w)
-        route = plan_for(x, wt, torch.empty(n, cout, h // 2, w // 2, dtype=x.dtype, device="cuda",
-                                            memory_format=torch.channels_last)).route
-        if route != want_route:
-            raise AssertionError(f"edge case {label!r} takes the {route} route, not {want_route}")
-        e = check_kernel(fused_norm_act_conv, reference_norm_act_conv, n, h, c, cout, torch.bfloat16,
-                         True, shift_offset=0.5, width=w)
-        errs.append(e)
-        print(f"check edge bf16 {label} (N={n} {h}x{w} C={c} Cout={cout}, route {route}): "
-              f"max|diff| {e:.3e}", flush=True)
+    for dtype, cases in EDGE_CASES_BY_DTYPE.items():
+        for label, n, h, w, c, cout, want_route in cases:
+            x, _, _, wt = kernel_inputs(n, h, c, cout, dtype, seed=0, w=w)
+            route = plan_for(x, wt, torch.empty(n, cout, h // 2, w // 2, dtype=x.dtype, device="cuda",
+                                                memory_format=torch.channels_last)).route
+            if route != want_route:
+                raise AssertionError(f"edge case {label!r} takes the {route} route, not {want_route}")
+            for slope, shift_offset in ((0.2, 0.5), (0.01, 1.0)):
+                e = check_kernel(fused_norm_act_conv, reference_norm_act_conv, n, h, c, cout, dtype,
+                                 True, slope=slope, shift_offset=shift_offset, width=w)
+                errs.append(e)
+                print(f"check edge {str(dtype)[6:]} {label} (N={n} {h}x{w} C={c} Cout={cout}, route "
+                      f"{route}, slope {slope}): max|diff| {e:.3e}", flush=True)
 
     sites = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -337,7 +363,20 @@ def phase_kernels() -> dict:
                 row.update(kernel_ms=(turns[1] + turns[2]) / 2, old_ms=(turns[0] + turns[3]) / 2,
                            turns_ms=turns, plan={k: v for k, v in vars(plan).items() if k != "route"})
             else:
-                row["kernel_ms"] = cuda_ms(lambda: fused_norm_act_conv(x, scale, shift, w, 0.2, xn_out=xn))
+                # the tf32x3 route against the FMA kernel, in turns: old, new, new, old
+                out = torch.empty(N_FRAMES, cout, h // 2, h // 2, dtype=dtype, device="cuda",
+                                  memory_format=torch.channels_last)
+                plan = plan_for(x, w, out, xn)
+                if plan.route != "tf32x3":
+                    raise AssertionError(f"{name} does not take the tf32x3 route in f32: {plan}")
+                old, new = Plan("f32"), plan
+                turns = [cuda_ms(lambda p=p: launch(p, x, scale, shift, w, out, 0.2, xn))
+                         for p in (old, new, new, old)]
+                row.update(kernel_ms=(turns[1] + turns[2]) / 2, old_ms=(turns[0] + turns[3]) / 2,
+                           turns_ms=turns, plan={k: v for k, v in vars(plan).items() if k != "route"})
+                # the FMA kernel's floor (the CUDA cores' FFMA peak) beside the route's own
+                row["ffma_bound_ms"] = bound
+                bound, bound_by, _, _ = site_bound(N_FRAMES, h, c, cout, dtype, True, tf32x3=True)
             row.update(
                 plain_ms=cuda_ms(lambda: reference_norm_act_conv(x, scale, shift, w, 0.2, xn_out=xn)),
                 library_ms=cuda_ms(lambda: F.conv2d(xn, w, stride=2, padding=1)),
@@ -350,9 +389,13 @@ def phase_kernels() -> dict:
             del x, xn
     torch.cuda.empty_cache()
     main_path = [r for r in sites if r["dtype"] == "bfloat16"]
+    f32_path = [r for r in sites if r["dtype"] == "float32"]
     by_kind = {"bytes": 0.0, "operations": 0.0}
     for r in main_path:
         by_kind[r["bound_by"]] += r["bound_ms"]
+    f32_by_kind = {"bytes": 0.0, "operations": 0.0}
+    for r in f32_path:
+        f32_by_kind[r["bound_by"]] += r["bound_ms"]
     entry = {
         "name": "fused_norm_act_conv",
         "route": "cuda",
@@ -368,10 +411,26 @@ def phase_kernels() -> dict:
         "library_ms": sum(r["library_ms"] for r in main_path),
         # the mma.sync kernel (the route of shapes TMA cannot take) at the same sites
         "old_ms": sum(r["old_ms"] for r in main_path),
+        # the f32 forward's five launches (trainer.precision: float32) on the
+        # tf32x3 route, the FMA kernel of the shapes it cannot take, the plain
+        # version and cuDNN's f32 conv with TF32 off at the same sites; the
+        # bound at the tensor cores' TF32 rate for three products, and at the
+        # CUDA cores' FFMA rate for one
+        "f32_ms": sum(r["kernel_ms"] for r in f32_path),
+        "f32_old_ms": sum(r["old_ms"] for r in f32_path),
+        "f32_plain_ms": sum(r["plain_ms"] for r in f32_path),
+        "f32_library_ms": sum(r["library_ms"] for r in f32_path),
+        "f32_bound_ms": sum(r["bound_ms"] for r in f32_path),
+        "f32_bound_by": max(f32_by_kind, key=f32_by_kind.get),
+        "f32_ffma_bound_ms": sum(r["ffma_bound_ms"] for r in f32_path),
     }
     print(f"fused_norm_act_conv bf16, five sites: TMA route {entry['ms']:.4f} ms, mma.sync kernel "
           f"{entry['old_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms, cuDNN {entry['library_ms']:.4f} ms",
           flush=True)
+    print(f"fused_norm_act_conv f32, five sites: tf32x3 route {entry['f32_ms']:.4f} ms, FMA kernel "
+          f"{entry['f32_old_ms']:.4f} ms, plain {entry['f32_plain_ms']:.4f} ms, cuDNN f32 (TF32 off) "
+          f"{entry['f32_library_ms']:.4f} ms, bound {entry['f32_bound_ms']:.4f} ms (three TF32 products), "
+          f"FFMA bound {entry['f32_ffma_bound_ms']:.4f} ms", flush=True)
     return entry
 
 
@@ -499,6 +558,64 @@ def phase_slice(card: str) -> int:
     print("serve " + json.dumps(stats), flush=True)
     phase_profile(gan, state, batch)
     return launches
+
+
+F32_SERVE_BATCH, F32_SERVE_ITERS, F32_SERVE_CHUNKS = 256, 2, 4
+
+
+def phase_serve_f32(card: str) -> dict:
+    """The f32 serving path: ``serve()`` at the flagship's widths with
+    ``trainer.precision: float32`` (batch 256, seeded weights), every cgen
+    forward's five ``fused_norm_act_conv`` launches on the tf32x3 route,
+    counted by route from 0 just before and read just after; the fused
+    colour generator held to its plain f32 forward first."""
+    from dcvgan_torch.cli.serve import Sink, serve
+    from dcvgan_torch.config import load_config
+    from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+    from dcvgan_torch.train.state import GeneratorState
+    from dcvgan_torch.train.step import DCVGAN
+
+    cfg = load_config(ROOT / "configs" / f"{FLAGSHIP}.yml")
+    cfg.trainer.precision = "float32"
+    gan = DCVGAN(cfg)
+    if gan.dtype != torch.float32 or cfg.cgen.ngf != 64:
+        raise AssertionError("the f32 serving run is not f32 at ngf 64")
+    init = gan.init_state(cfg.seed).generators()
+    state = GeneratorState(ggen=redrawn(init.ggen, seed=1), cgen=redrawn(init.cgen, seed=2))
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    frames = torch.rand(32, 64, 64, 1, generator=g, device="cuda").mul(2).sub(1).permute(0, 3, 1, 2)
+    z = torch.randn(32, cfg.cgen.dim_z_color, generator=g, device="cuda")
+    with torch.inference_mode():
+        got = state.cgen(frames, z)
+    want = plain_cgen(state.cgen, frames, z)
+    atol, rtol = OUT_TOL[torch.float32]
+    diff = (got - want).abs()
+    worst = (diff / (atol + rtol * want.abs())).max().item()
+    print(f"cgen fused vs plain (f32, TF32 off, 32 frames, redrawn weights): max|diff| "
+          f"{diff.max().item():.3e}, mean {diff.mean().item():.3e}, worst |diff| / (tol {atol:g} + "
+          f"{rtol:g}*|plain|) {worst:.3f}", flush=True)
+    if not (worst <= 1.0 and got.abs().max().item() > 0.1 and torch.isfinite(got).all()):
+        raise AssertionError("the fused f32 colour generator disagrees with its plain forward")
+
+    batch, iters, chunks = F32_SERVE_BATCH, F32_SERVE_ITERS, F32_SERVE_CHUNKS
+    fused_norm_act_conv.launches = 0
+    fused_norm_act_conv.routes.clear()
+    # -- main path: counts from 0 ------------------------------------------
+    stats = serve(gan, state, batch, iters, chunks, Sink("null", None, "depth", False), seed=0)
+    torch.cuda.synchronize()
+    launches, routes = fused_norm_act_conv.launches, dict(fused_norm_act_conv.routes)
+    # -- end of main path ----------------------------------------------------
+    forwards = iters * (chunks + 1)  # warm-up + chunks
+    print(f"f32 serve: fused_norm_act_conv launches {launches} for {forwards} cgen forwards, by route "
+          f"{json.dumps(routes)}", flush=True)
+    if launches != 5 * forwards or routes != {"tf32x3": launches}:
+        raise AssertionError(f"expected {5 * forwards} launches, all on the tf32x3 route")
+    print(f"f32 serve: {stats['value']} videos/s at batch {batch} on {card} (a first measurement, "
+          f"not a limit; checksum {stats['checksum']})", flush=True)
+    print("f32 serve " + json.dumps(stats), flush=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "routes": routes, "videos_per_s": stats["value"], "cgen_err": worst}
 
 
 # kernel-name fragments -> category, for the profile of one sampling round
@@ -947,6 +1064,7 @@ def phase_train(card: str):
     kinds = profile_once(lambda: gan.train_step(st, dev_batch, prng.base_key(3, "cuda")),
                          "train profile", {"batch": cfg.batchsize},
                          {"dequantize_video": dequantize_video, "fused_norm_act_conv": fused_norm_act_conv})
+    profiled_train(cfg, dataset)
     out = {"launches": launches, "device_ms": None, "trainer": trainer, "dataset": dataset,
            "logger": logger, "tmp": tmp, "fused_err": fused_err}
     if not kinds:
@@ -960,6 +1078,30 @@ def phase_train(card: str):
           "device memory; the inputs may sit in L2)", flush=True)
     out["device_ms"] = dq_ms
     return out
+
+
+def profiled_train(cfg, dataset) -> None:
+    """``trainer.profile`` on the card: one epoch (3 steps) of the train
+    phase's config with the key on writes a Chrome trace under
+    ``<run_dir>/profile`` whose device kernels name ``dequant_kernel``."""
+    from dcvgan_torch.train.trainer import Trainer
+
+    pcfg = copy.deepcopy(cfg)
+    pcfg.experiment_name += "-profiled"
+    pcfg.n_epochs, pcfg.trainer.profile = 1, True
+    trainer = Trainer(pcfg, dataset, logger=recorder(Path(pcfg.log_dir) / pcfg.experiment_name))
+    state = trainer.train()
+    traces = sorted((trainer.run_dir / "profile").glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"trainer.profile wrote {len(traces)} traces, not 1")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    dequant = [e for e in kernels if "dequant_kernel" in e.get("name", "")]
+    print(f"trainer.profile: {traces[0].name} ({traces[0].stat().st_size / 1e6:.1f} MB) over {state.step} "
+          f"steps: {len(kernels)} device kernel events, {len(dequant)} of dequant_kernel "
+          f"(dequantize_video)", flush=True)
+    if not dequant:
+        raise AssertionError("the trainer's trace names no dequant_kernel launch")
 
 
 # ------------------------------------------------------------------ levers
@@ -2790,6 +2932,10 @@ def main() -> int:
     entry = phase_kernels()
     dequant_entry = phase_dequant()
     entry["launches"] = phase_slice(card)
+    f32_serve = phase_serve_f32(card)
+    # the f32 serving run's launches, counted from 0, all on the tf32x3 route
+    entry["f32_serve_launches"] = f32_serve["launches"]
+    entry["f32_serve_videos_per_s"] = f32_serve["videos_per_s"]
     run = phase_train(card)
     levers = phase_levers(run, card)
     dequant_entry["launches"] = run["launches"]

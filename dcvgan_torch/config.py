@@ -4,9 +4,11 @@ Counterpart of ``dcvgan_tpu/config.py``, kept as the port's own copy. It
 loads every file in ``configs/``: both YAML generations (the current schema
 and the stale one with a merged ``gen:`` block and a string
 ``geometric_info``) migrate as in the JAX package, with the same defaults
-and the same validation errors. The few keys that have no meaning on one
-GPU (``trainer.profile``, ``debug_nans``, ``donate_state``) are accepted and
-dropped; any other unknown key raises, as the JAX loader raises.
+and the same validation errors. Two keys are accepted and dropped:
+``config_path`` (the loader's record of the file) and ``trainer.donate_state``
+(eager PyTorch already updates the state in place); any other unknown key
+raises, as the JAX loader raises. ``trainer.profile`` and
+``trainer.debug_nans`` run in the trainer (``train/trainer.py``).
 
 The opt-in levers (``shared_fakes``, ``critic_joint_batch``,
 ``critic_stat_reuse``, ``remat``, ``ggen_double_step``, ``norm: group``)
@@ -34,11 +36,11 @@ VALID_LOSSES = ("adversarial-loss", "hinge-loss")
 VALID_METRICS = ("is", "fid", "prd", "fvd")
 VALID_PRECISIONS = ("float32", "bfloat16")
 
-# Keys of the full schema with no counterpart on one GPU, per section. They
+# Keys of the full schema with no counterpart in the port, per section. They
 # load and are ignored.
 _IGNORED_KEYS = {
     "": {"config_path"},
-    "trainer": {"profile", "debug_nans", "donate_state"},
+    "trainer": {"donate_state"},
 }
 
 
@@ -191,6 +193,11 @@ class TrainerConfig:
     ggen_double_step: bool = False
     # resume from the latest checkpoint in the run directory, if any
     resume: bool = True
+    # a torch.profiler trace of the training loop into <run_dir>/profile
+    profile: bool = False
+    # raise FloatingPointError at the first step whose losses or gradients
+    # are not finite (one device sync a step while on)
+    debug_nans: bool = False
     remat: bool = False
     # ship uint8 frames to the device and dequantise there (ops/dequant.py)
     device_normalize: bool = True

@@ -20,7 +20,7 @@
 // value is the one fed to the product. The route is chosen on the host, by
 // shape, before the launch (ops/fused_block.py: plan):
 //
-// - bf16, TMA route (the serving path; the section "bf16, TMA" below): a
+// - bf16, TMA route (the serving path; the section "TMA" below): a
 //   persistent, warp-specialised kernel. Tiles of 128 output pixels x up to
 //   128 output channels; one producer thread streams the input rows of a
 //   tile (64 channels a stage) and the weights (one tap x 64 channels a
@@ -33,8 +33,14 @@
 // - bf16, mma.sync route (shapes TMA cannot take: C or Cout not a multiple
 //   of 8 or 16, pointers not 16-byte aligned, rows wider than a TMA box):
 //   256 x 128 tiles, 16-channel slices staged by cp.async, mma.sync m16n8k16.
-// - f32: 128 x 128 tiles with the patches staged through registers and FMA
-//   on the CUDA cores (the f32 reference path runs in full f32, so no TF32).
+// - f32, TMA route ("tf32x3"): the same kernel on f32 (32 channels a stage),
+//   its products error-compensated TF32 on wgmma m64nBNk8 (three TF32
+//   products of split operands per f32 product; see "TMA" below), which
+//   keeps the results within f32 tolerance of a full-f32 convolution.
+// - f32, FMA route (f32 shapes TMA cannot take: C not a multiple of 4, Cout
+//   not of 16, pointers not 16-byte aligned, rows wider than a TMA box):
+//   128 x 128 tiles with the patches staged through registers and FMA on the
+//   CUDA cores, in full f32.
 //
 // What bounds it on an H100 at the flagship shapes (bf16, N = 4096 frames,
 // with xn_out): by bytes from device memory, down1 (32x32x64 -> 16x16x128,
@@ -47,8 +53,11 @@
 // and the MMAs in separate warps, runs on wgmma, and skips dead taps (3/4 of
 // the work at down5). Weight multicast over a cluster of 2 CTAs halves the
 // L2 reads of the weights but not the bytes each SM takes in; it measured
-// slower at every site, so the kernel has no clusters. Times against the
-// bounds, the mma.sync kernel and cuDNN in PERF.md.
+// slower at every site, so the kernel has no clusters. The f32 route does
+// three TF32 products for each f32 one, so its bound is the tensor cores'
+// TF32 rate at down1..down3 (3 x the live-tap flops over 495 TFLOP/s) and
+// its weight stages carry 4 times the bf16 bytes. Times against the bounds,
+// the mma.sync and FMA kernels and cuDNN in PERF.md.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -423,7 +432,7 @@ size_t bf16_smem_bytes(int n, int h, int w_in, int c, int& region_cap) {
   return pipe > tile ? pipe : tile;
 }
 
-// ----------------------------------------------------------------- f32 ----
+// ------------------------------------------------------------ f32, FMA ----
 
 constexpr int kThreads = 256;
 constexpr int kBM = 128;                             // output pixels per block
@@ -581,14 +590,14 @@ __global__ void __launch_bounds__(kThreads) fused_f32_kernel(const Args a) {
   }
 }
 
-// ------------------------------------------------------------ bf16, TMA ----
+// ------------------------------------------------------ TMA (bf16, f32) ----
 //
 // A persistent, warp-specialised kernel of 512 threads in three roles:
 // - two consumer warpgroups, 64 output pixels x BN channels each with the
 //   f32 accumulators in registers: for each live tap they gather A from the
 //   transformed region into registers with ldmatrix (rows of padding point
-//   at a zero row: padding is 0 after the prologue) and run wgmma m64nBNk16
-//   with B read from a weight stage, then write the tile straight to `out`;
+//   at a zero row: padding is 0 after the prologue) and run wgmma with B
+//   read from a weight stage, then write the tile straight to `out`;
 // - one producer warp, of which one thread starts every TMA load;
 // - seven transform warps, which apply the prologue in place to each staged
 //   region element once, while the consumers multiply the previous chunk,
@@ -600,19 +609,59 @@ __global__ void __launch_bounds__(kThreads) fused_f32_kernel(const Args a) {
 // b + grid, ..., so one unit's epilogue overlaps the next unit's loads.
 //
 // Two rings in shared memory, with mbarriers:
-// - the region: the input rows a tile reads, 64 channels of them, copied by
-//   one TMA box (channel, column, flattened row) per (tile, chunk); full ->
-//   transformed -> empty. The producer sends a region out as soon as its
-//   stage is free, ahead of the weights of earlier chunks;
-// - the weights: one tap x 64 channels x BN rows per stage, in the 128-byte
-//   swizzled K-major layout a wgmma B descriptor reads; full -> empty.
+// - the region: the input rows a tile reads, one 128-byte row of channels
+//   each (64 bf16 or 32 f32), copied by one TMA box (channel, column,
+//   flattened row) per (tile, chunk); full -> transformed -> empty. The
+//   producer sends a region out as soon as its stage is free, ahead of the
+//   weights of earlier chunks;
+// - the weights: one tap x one chunk of channels x BN rows per part, in the
+//   128-byte swizzled K-major layout a wgmma B descriptor reads; full ->
+//   empty.
 // Taps that are padding for every pixel of a unit are skipped by all roles.
+//
+// The element type T picks the products:
+// - bf16: wgmma m64nBNk16 .bf16, A fragments as ldmatrix gathers them;
+// - float ("3xTF32", the f32 route): one TF32 product keeps about 11 bits
+//   of each operand, too few for f32 results. Each operand is split into two
+//   TF32 parts, v = v_hi + v_lo with v_hi = tf32(v) and v_lo = tf32(v -
+//   v_hi) (cvt.rna; v - v_hi is exact in f32), and three wgmma m64nBNk8
+//   .tf32 products, a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, accumulate in f32;
+//   the dropped a_lo*b_lo and the parts' rounding leave a relative error
+//   near 2^-21 a product, against 2^-24 for an f32 FMA. The same ldmatrix
+//   gather serves: an 8x8 b16 matrix is an 8x4 f32 one, and lane l
+//   receives element (l / 4, l % 4) of each, which is the TF32 A
+//   fragment's layout. A is split in the consumers' registers after
+//   the gather (the region keeps the f32 activation for xn_out). B is the
+//   same for every tile, so split_tf32_kernel splits the weight once a call
+//   into a scratch tensor the wrapper allocates ([hi; lo], each laid out as
+//   the weight), and a weight stage holds both parts of one tap and chunk.
+//   Against the bf16 kernel the tensor cores do 6 times the work for the
+//   same pixels (three products at half the bf16 rate) and each stage
+//   streams 4 times the weight bytes. That stream holds it: with the
+//   products removed the kernel keeps most of its time (PERF.md,
+//   tools/fused_block_lesions.py --dtype float32). A build that streamed the
+//   raw weights instead and split each stage in shared memory with three of
+//   the transform warps halved those bytes but ran slower on the card: four
+//   region warps instead of seven, and spills.
+//   The tensor cores truncate as they accumulate (each wgmma rounds its sum
+//   toward zero), so the error grows with the number of accumulating steps
+//   into one sum. a_hi * b_hi accumulates alone in `acc` and the two
+//   correction terms in `part`, 2^-11 of its size, which adds little; the
+//   two meet in the epilogue. All three in one sum (the lesion tool's
+//   `one_sum`) triples the steps and about triples the error. Adding each
+//   tap's sum into a register accumulator, rounded to nearest, beat the FMA
+//   kernel's error, but ptxas serialises wgmmas whose accumulators other
+//   instructions read inside the loop (C7514), even after a wait for all of
+//   them; so neither sum is read before the unit ends. Two accumulators and
+//   a tap's split A fragments, double-buffered, fit the 128 registers a
+//   thread (ptxas allocates no more under this launch, setmaxnreg or not) at
+//   64 output channels a tile (kMaxBN): the f32 plan's tiles are at most 64
+//   wide, which also gives down1 five weight stages where 128 gave two.
 
 namespace tma {
 
 constexpr int kBM = 128;         // output pixels per tile
-constexpr int kCK = 64;          // input channels per stage: 128-byte rows
-constexpr int kRB = 2 * kCK;     // bytes of one staged pixel or weight row
+constexpr int kRB = 128;         // bytes of one staged pixel or weight row: TMA's widest swizzle
 constexpr int kConsumers = 256;  // two warpgroups
 // Two consumer warpgroups, one producer warp and seven transform warps: with
 // at most 128 output channels a tile, the consumers' 64 f32 accumulators
@@ -624,34 +673,47 @@ constexpr int kAuxRegs = 96, kConsumerRegs = 160;
 static_assert((kThreads - kConsumers) * kAuxRegs + kConsumers * kConsumerRegs <= 65536, "register split");
 constexpr int kRegionStages = 2;
 
+template <typename T>
+constexpr bool kF32 = std::is_same<T, float>::value;
+template <typename T>
+constexpr int kCK = kRB / sizeof(T);  // input channels per stage: 64 bf16, 32 f32
+template <typename T>
+constexpr int kParts = kF32<T> ? 2 : 1;  // weight parts per stage: f32 holds hi and lo
+// output channels per tile at most. f32 keeps two accumulators and a tap's
+// split A fragments, double-buffered; at 128 channels that spills (ptxas
+// allocates 128 registers a thread under this launch, setmaxnreg or not)
+template <typename T>
+constexpr int kMaxBN = kF32<T> ? 64 : 128;
+
 struct Params {
   const float* scale;
   const float* shift;
-  bf16* out;
-  bf16* xn_out;  // may be null
+  void* out;
+  void* xn_out;  // may be null
   const int* tiles;  // n_units rows of kTileColumns: the host's tile table
   int n, h, w, c, cout;
   float slope;
   int w_stages, region_rows;
-  int region_bytes, wstage_bytes;  // ring strides, multiples of 1024
-  int zero_off, bar_off;           // byte offsets in shared memory
+  int region_bytes, wstage_bytes, wpart_bytes;  // ring strides, multiples of 1024
+  int zero_off, bar_off;                        // byte offsets in shared memory
   int n_units;
   int xn_rows;  // input rows of a tile's xn_out box by TMA store; 0: per-thread stores
 };
 
 // The shared-memory layout, from a 1024-byte aligned base: [region x 2]
-// [weight stage x w_stages][zero row][mbarriers]; `total` includes 1024
-// bytes of slack for aligning the base.
+// [weight stage x w_stages, each `parts` parts][zero row][mbarriers];
+// `total` includes 1024 bytes of slack for aligning the base.
 struct Layout {
-  int region_bytes, wstage_bytes, zero_off, bar_off, total;
+  int region_bytes, wpart_bytes, wstage_bytes, zero_off, bar_off, total;
 };
 
 inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-inline Layout layout(int w, int bn, int w_stages, int region_rows) {
+inline Layout layout(int w, int bn, int w_stages, int region_rows, int parts) {
   Layout l;
   l.region_bytes = round_up(region_rows * w * kRB, 1024);
-  l.wstage_bytes = round_up(bn * kRB, 1024);
+  l.wpart_bytes = round_up(bn * kRB, 1024);
+  l.wstage_bytes = parts * l.wpart_bytes;
   l.zero_off = kRegionStages * l.region_bytes + w_stages * l.wstage_bytes;
   l.bar_off = l.zero_off + 128;
   l.total = 1024 + l.bar_off + 8 * (3 * kRegionStages + 2 * w_stages);
@@ -745,6 +807,13 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint64_t layout_typ
 }
 
 #define F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define A4 "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3])
+#define D8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define D16 D8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define D32 D16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define D64                                                                                   \
+  D32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, " \
+      "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
 
 // acc(64 x N, f32) += A(64 x 16, bf16 registers) * B(16 x N, bf16 K-major in shared memory)
 template <int N>
@@ -799,19 +868,105 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 
-#undef F4
+// acc(64 x N, f32) += A(64 x 8, TF32 registers) * B(8 x N, TF32 K-major in shared memory)
+template <int N>
+__device__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc, int accumulate);
 
-// The prologue on one 16-byte granule: 8 channels of x, in place.
-__device__ __forceinline__ uint4 transform8(uint4 v, const float (&sc)[8], const float (&sh)[8], float slope) {
+template <>
+__device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {" D8 "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : F4(0), F4(4)
+      : A4, "l"(desc), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" D16 "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : F4(0), F4(4), F4(8), F4(12)
+      : A4, "l"(desc), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" D32 "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : F4(0), F4(4), F4(8), F4(12), F4(16), F4(20), F4(24), F4(28)
+      : A4, "l"(desc), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" D64 "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : F4(0), F4(4), F4(8), F4(12), F4(16), F4(20), F4(24), F4(28),
+        F4(32), F4(36), F4(40), F4(44), F4(48), F4(52), F4(56), F4(60)
+      : A4, "l"(desc), "r"(accumulate));
+}
+
+#undef F4
+#undef A4
+#undef D8
+#undef D16
+#undef D32
+#undef D64
+
+// The prologue on one 16-byte granule of x, in place: 8 bf16 or 4 f32 channels.
+template <typename T>
+__device__ __forceinline__ uint4 transform16(uint4 v, const float (&sc)[16 / sizeof(T)],
+                                             const float (&sh)[16 / sizeof(T)], float slope) {
   uint32_t* w = reinterpret_cast<uint32_t*>(&v);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float lo = __uint_as_float(w[i] << 16), hi = __uint_as_float(w[i] & 0xffff0000u);
-    const __nv_bfloat162 r = __floats2bfloat162_rn(act(lo, sc[2 * i], sh[2 * i], slope),
-                                                   act(hi, sc[2 * i + 1], sh[2 * i + 1], slope));
-    w[i] = *reinterpret_cast<const uint32_t*>(&r);
+    if constexpr (kF32<T>) {
+      w[i] = __float_as_uint(act(__uint_as_float(w[i]), sc[i], sh[i], slope));
+    } else {
+      const float lo = __uint_as_float(w[i] << 16), hi = __uint_as_float(w[i] & 0xffff0000u);
+      const __nv_bfloat162 r = __floats2bfloat162_rn(act(lo, sc[2 * i], sh[2 * i], slope),
+                                                     act(hi, sc[2 * i + 1], sh[2 * i + 1], slope));
+      w[i] = *reinterpret_cast<const uint32_t*>(&r);
+    }
   }
   return v;
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float f) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(f));
+  return r;
+}
+
+// An f32 A fragment into its TF32 parts: a keeps the high part, lo gets the low.
+__device__ __forceinline__ void split_tf32(uint32_t (&a)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float f = __uint_as_float(a[i]);
+    const uint32_t hi = tf32_rna(f);
+    lo[i] = tf32_rna(__fsub_rn(f, __uint_as_float(hi)));
+    a[i] = hi;
+  }
+}
+
+// The weight's TF32 parts, once a call: parts[i] = hi(w[i]), parts[n + i] = lo(w[i]).
+__global__ void split_tf32_kernel(const float* __restrict__ w, float* __restrict__ parts, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    const float f = w[i];
+    const uint32_t hi = tf32_rna(f);
+    parts[i] = __uint_as_float(hi);
+    parts[n + i] = __uint_as_float(tf32_rna(__fsub_rn(f, __uint_as_float(hi))));
+  }
+}
+
+__device__ __forceinline__ void store2(bf16* o, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* o, float a, float b) {
+  *reinterpret_cast<float2*>(o) = make_float2(a, b);
 }
 
 constexpr int kTileColumns = 5;  // m0, m1, n0, p_lo, live: ops/fused_block.py TILE_COLUMNS
@@ -826,10 +981,12 @@ __device__ __forceinline__ Tile tile_of(int u, const Params& p) {
   return Tile{__ldg(row), __ldg(row + 1), __ldg(row + 2), __ldg(row + 3), static_cast<uint32_t>(__ldg(row + 4))};
 }
 
-template <int BN>
+template <typename T, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_tma_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
                      const __grid_constant__ CUtensorMap tm_xn, const Params p) {
+  constexpr int kCK = tma::kCK<T>;
+  constexpr int kGE = 16 / sizeof(T);  // channels per 16-byte granule
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem =
       reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -906,8 +1063,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         if (ready(w_empty(ws), wph ^ 1)) {
           if (lane == 0) {
-            mbar_expect_tx(w_full(ws), BN * kRB);
-            tma_load(wbase + ws * p.wstage_bytes, &tm_w, w_full(ws), wc * kCK, wtap, wt.n0);
+            const uint32_t dst = wbase + ws * p.wstage_bytes;
+            mbar_expect_tx(w_full(ws), kParts<T> * BN * kRB);
+            tma_load(dst, &tm_w, w_full(ws), wc * kCK, wtap, wt.n0);
+            // f32: the low parts, the weight's second half in the split scratch
+            if (kParts<T> == 2) tma_load(dst + p.wpart_bytes, &tm_w, w_full(ws), wc * kCK, wtap, p.cout + wt.n0);
           }
           if (++ws == p.w_stages) {
             ws = 0;
@@ -935,6 +1095,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     } else {
       // ---- transform warps: the prologue in place, and the owner's xn_out
+      T* const xn_out = static_cast<T*>(p.xn_out);
       const int tt = tid - kConsumers - 32;
       const int my_j = tt & 7;  // this thread's 16-byte granule of every staged pixel
       const int px_step = 32 * kTransformWarps / 8;
@@ -945,15 +1106,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       uint32_t rph = 0;
       for (int u = u0; u < p.n_units; u += stride) {
         const Tile t = tile_of(u, p);
-        const bool write_xn = p.xn_out != nullptr && t.n0 == 0;
+        const bool write_xn = xn_out != nullptr && t.n0 == 0;
         for (int cc = 0; cc < chunks; ++cc) {
-          const int ch = cc * kCK + 8 * my_j;
+          const int ch = cc * kCK + kGE * my_j;
           mbar_wait(r_full(rs), rph);
           if (ch < p.c) {  // channels past C stay 0 (the box's fill), as do their weights
             unsigned char* region = smem + rs * p.region_bytes;
-            float sc[8], sh[8];
+            float sc[kGE], sh[kGE];
 #pragma unroll
-            for (int e = 0; e < 8; ++e) {
+            for (int e = 0; e < kGE; ++e) {
               sc[e] = __ldg(p.scale + ch + e);
               sh[e] = __ldg(p.shift + ch + e);
             }
@@ -966,7 +1127,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                 if (px < n_px) v[i] = *reinterpret_cast<const uint4*>(region + swz(px * kRB + 16 * my_j));
               }
 #pragma unroll
-              for (int i = 0; i < 4; ++i) v[i] = transform8(v[i], sc, sh, p.slope);
+              for (int i = 0; i < 4; ++i) v[i] = transform16<T>(v[i], sc, sh, p.slope);
 #pragma unroll
               for (int i = 0; i < 4; ++i) {
                 const int px = px0 + i * px_step;
@@ -977,7 +1138,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                   const int row = t.p_lo + rr, n = h_shift >= 0 ? row >> h_shift : row / p.h, ih = row - n * p.h;
                   const int m_own = (n * OH + (ih >> 1)) * OW + (iw >> 1);
                   if (m_own >= t.m0 && m_own < t.m1)
-                    *reinterpret_cast<uint4*>(p.xn_out + (static_cast<long long>(row) * p.w + iw) * p.c + ch) = v[i];
+                    *reinterpret_cast<uint4*>(xn_out + (static_cast<long long>(row) * p.w + iw) * p.c + ch) = v[i];
                 }
               }
             }
@@ -1013,13 +1174,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ---- consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     const int row_in_tile = 64 * (warp >> 2) + 16 * (warp & 3);  // this warp's 16 rows
-    // descriptor of weight stage 0; stage s adds s * wstage_bytes, k step kk adds 32 bytes
+    // descriptor of weight stage 0; stage s adds s * wstage_bytes, k step kk
+    // adds 32 bytes (16 bf16 or 8 f32 channels), the f32 low part wpart_bytes
     const uint64_t desc0 = smem_desc(wbase, 1, 8 * kRB);
     const uint32_t desc_stage = static_cast<uint32_t>(p.wstage_bytes) >> 4;
+    const uint32_t desc_part = static_cast<uint32_t>(p.wpart_bytes) >> 4;
     int rs = 0, ws = 0;
     uint32_t rph = 0, wph = 0;
     float acc[BN / 2];
+    float part[BN / 2];    // f32: the correction terms' accumulator (acc takes a_hi * b_hi)
     uint32_t af[2][4][4];  // A fragments of a tap's 4 k steps, double-buffered over taps
+    uint32_t al[2][4][4];  // f32: their low TF32 parts (af keeps the high ones)
 
     auto release_w = [&](int s) {
       if (lane == 0) mbar_arrive(w_empty(s));
@@ -1043,10 +1208,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < BN / 2; ++i) {
+        acc[i] = 0.f;
+        part[i] = 0.f;
+      }
       int prev_ws = -1, buf = 0;
 
-      // A of one tap into af[B] (4 ldmatrix), then its 4 wgmmas on weight stage ws
+      // A of one tap into af[B] (4 ldmatrix; f32 splits it into af / al),
+      // then its wgmmas on weight stage ws. f32: three TF32 products a k
+      // step, the correction terms into part, a_hi * b_hi into acc.
       auto tap_mma = [&](auto bsel, uint32_t region_addr, int tap) {
         constexpr int B = decltype(bsel)::value;
         const int kh = tap >> 2, kw = tap & 3;
@@ -1054,11 +1224,24 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t a = ok ? region_addr + swz(static_cast<uint32_t>(a_off + (kh * p.w + kw) * kRB)) : zero_addr;
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) ldmatrix_x4(af[B][kk], a ^ (32u * kk));
+        if constexpr (kF32<T>) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) split_tf32(af[B][kk], al[B][kk]);
+        }
         mbar_wait(w_full(ws), wph);
         const uint64_t desc = desc0 + static_cast<uint64_t>(ws * desc_stage);
         wgmma_fence();
+        if constexpr (kF32<T>) {
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs<BN>(acc, af[B][kk], desc + 2 * kk, 1);
+          for (int kk = 0; kk < 4; ++kk) {
+            wgmma_tf32<BN>(part, al[B][kk], desc + 2 * kk, 1);
+            wgmma_tf32<BN>(part, af[B][kk], desc + desc_part + 2 * kk, 1);
+            wgmma_tf32<BN>(acc, af[B][kk], desc + 2 * kk, 1);
+          }
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) wgmma_rs<BN>(acc, af[B][kk], desc + 2 * kk, 1);
+        }
         wgmma_commit();
       };
 
@@ -1092,18 +1275,22 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (prev_ws >= 0) release_w(prev_ws);
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+      if constexpr (kF32<T>) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          asm volatile("" : "+f"(part[i])::"memory");
+          acc[i] = __fadd_rn(acc[i], part[i]);
+        }
+      }
 
       // epilogue: fragment (row g / g + 8, columns 8j + 2q, +1) straight to out
       const int g = lane >> 2, q = lane & 3;
       const int r0 = t.m0 + row_in_tile + g;
-      bf16* o = p.out + static_cast<long long>(r0) * p.cout + t.n0 + 2 * q;
+      T* o = static_cast<T*>(p.out) + static_cast<long long>(r0) * p.cout + t.n0 + 2 * q;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
-        if (r0 < t.m1)
-          *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) = __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
-        if (r0 + 8 < t.m1)
-          *reinterpret_cast<__nv_bfloat162*>(o + 8 * p.cout + 8 * j) =
-              __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+        if (r0 < t.m1) store2(o + 8 * j, acc[4 * j], acc[4 * j + 1]);
+        if (r0 + 8 < t.m1) store2(o + 8 * p.cout + 8 * j, acc[4 * j + 2], acc[4 * j + 3]);
       }
     }
   }
@@ -1126,23 +1313,38 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D bf16 map, dims innermost first, strides of dims 1 and 2 in bytes.
-bool encode_3d(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[3], const cuuint64_t (&strides)[2],
-               const cuuint32_t (&box)[3], CUtensorMapSwizzle swizzle) {
+// A 3-D map, dims innermost first, strides of dims 1 and 2 in bytes.
+bool encode_3d(CUtensorMap* map, CUtensorMapDataType type, const void* base, const cuuint64_t (&dims)[3],
+               const cuuint64_t (&strides)[2], const cuuint32_t (&box)[3]) {
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return encode_tiled()(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN>
+template <typename T, int BN>
 int launch(const CUtensorMap& tm_x, const CUtensorMap& tm_w, const CUtensorMap& tm_xn, const Params& p, int grid,
            int smem, cudaStream_t s) {
   const cudaError_t err =
-      cudaFuncSetAttribute(fused_tma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(fused_tma_kernel<T, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_tma_kernel<BN><<<static_cast<unsigned>(grid), kThreads, static_cast<size_t>(smem), s>>>(tm_x, tm_w, tm_xn, p);
+  fused_tma_kernel<T, BN>
+      <<<static_cast<unsigned>(grid), kThreads, static_cast<size_t>(smem), s>>>(tm_x, tm_w, tm_xn, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bn(int bn, const CUtensorMap& tm_x, const CUtensorMap& tm_w, const CUtensorMap& tm_xn, const Params& p,
+              int grid, int smem, cudaStream_t s) {
+  switch (bn) {
+    case 16: return launch<T, 16>(tm_x, tm_w, tm_xn, p, grid, smem, s);
+    case 32: return launch<T, 32>(tm_x, tm_w, tm_xn, p, grid, smem, s);
+    case 64: return launch<T, 64>(tm_x, tm_w, tm_xn, p, grid, smem, s);
+    case 128:
+      if constexpr (kMaxBN<T> == 128) return launch<T, 128>(tm_x, tm_w, tm_xn, p, grid, smem, s);
+      return static_cast<int>(cudaErrorInvalidValue);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace tma
@@ -1194,47 +1396,56 @@ extern "C" int dcvgan_fused_norm_act_conv(int dtype, const void* x, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The TMA route (bf16 only), with the schedule planned on the host
-// (dcvgan_torch/ops/fused_block.py: plan, tile_table): bn output channels per
+// The TMA route, with the schedule planned on the host (dcvgan_torch/ops/
+// fused_block.py: plan, tile_table). dtype: 0 = float32 (3xTF32 products;
+// `w_split` is scratch of 2 * cout * 16 * c floats that receives the weight's
+// TF32 parts first), 1 = bfloat16 (`w_split` unused). bn output channels per
 // tile, w_stages weight stages, region_rows input rows per staged region,
 // `tiles` the device copy of the n_units x kTileColumns int32 tile table,
 // `grid` CTAs and `smem` bytes of dynamic shared memory. Returns
 // cudaGetLastError(), -2 when `smem` is not this source's layout for the
 // plan, -3 when libcuda has no cuTensorMapEncodeTiled, -4 when a tensor map
 // is refused, -5 when region_rows is fewer than the rows a tile reads.
-extern "C" int dcvgan_fused_norm_act_conv_tma(const void* x, const void* scale, const void* shift, const void* w,
-                                              void* out, void* xn_out, int n, int h, int w_in, int c, int cout,
-                                              float slope, int bn, int w_stages, int region_rows,
-                                              const void* tiles, int n_units, int grid, int smem, void* stream) {
+extern "C" int dcvgan_fused_norm_act_conv_tma(int dtype, const void* x, const void* scale, const void* shift,
+                                              const void* w, void* w_split, void* out, void* xn_out, int n, int h,
+                                              int w_in, int c, int cout, float slope, int bn, int w_stages,
+                                              int region_rows, const void* tiles, int n_units, int grid, int smem,
+                                              void* stream) {
   using namespace tma;
+  const bool f32 = dtype == 0;
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
-                         reinterpret_cast<uintptr_t>(xn_out) | reinterpret_cast<uintptr_t>(out);
+                         reinterpret_cast<uintptr_t>(xn_out) | reinterpret_cast<uintptr_t>(out) |
+                         reinterpret_cast<uintptr_t>(w_split);
   const int m_tiles = static_cast<int>((static_cast<long long>(n) * (h / 2) * (w_in / 2) + tma::kBM - 1) / tma::kBM);
-  const bool ok = c % 8 == 0 && bn >= 16 && bn <= 128 && cout % bn == 0 && w_stages >= 1 && region_rows >= 1 &&
+  const int max_bn = f32 ? kMaxBN<float> : kMaxBN<bf16>;
+  const bool ok = (dtype == 0 || dtype == 1) && c % (f32 ? 4 : 8) == 0 && (!f32 || w_split != nullptr) &&
+                  bn >= 16 && bn <= max_bn && cout % bn == 0 && w_stages >= 1 && region_rows >= 1 &&
                   region_rows <= 256 && w_in <= 256 && n_units == m_tiles * (cout / bn) && grid >= 1 &&
                   grid <= n_units && tiles != nullptr && ptrs % 16 == 0;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   if (region_rows < max_region_rows(n, h, w_in, tma::kBM)) return -5;
-  const Layout l = layout(w_in, bn, w_stages, region_rows);
+  const Layout l = layout(w_in, bn, w_stages, region_rows, f32 ? kParts<float> : kParts<bf16>);
   if (l.total != smem) return -2;
   if (encode_tiled() == nullptr) return -3;
-  const CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B;
-  const cuuint64_t es = 2;
+  const CUtensorMapDataType type = f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const cuuint64_t es = f32 ? 4 : 2;
+  const cuuint32_t ck = static_cast<cuuint32_t>(f32 ? kCK<float> : kCK<bf16>);
   CUtensorMap tm_x, tm_w, tm_xn;
-  // x as (C, W, N * H): a box is 64 channels of region_rows whole rows
-  if (!encode_3d(&tm_x, x, {cuuint64_t(c), cuuint64_t(w_in), cuuint64_t(n) * h},
-                 {c * es, cuuint64_t(w_in) * c * es},
-                 {cuuint32_t(kCK), cuuint32_t(w_in), cuuint32_t(region_rows)}, swizzle))
+  // x as (C, W, N * H): a box is one chunk of channels of region_rows whole rows
+  if (!encode_3d(&tm_x, type, x, {cuuint64_t(c), cuuint64_t(w_in), cuuint64_t(n) * h},
+                 {c * es, cuuint64_t(w_in) * c * es}, {ck, cuuint32_t(w_in), cuuint32_t(region_rows)}))
     return -4;
-  // w as (C, 16 taps, Cout): a box is 64 channels of one tap for bn output channels
-  if (!encode_3d(&tm_w, w, {cuuint64_t(c), 16, cuuint64_t(cout)}, {c * es, 16 * c * es},
-                 {cuuint32_t(kCK), 1, cuuint32_t(bn)}, swizzle))
+  // w as (C, 16 taps, Cout): a box is one chunk of channels of one tap for bn
+  // output channels; f32 reads the split scratch as (C, 16, 2 * Cout), the
+  // high parts in rows [0, Cout) and the low parts in [Cout, 2 * Cout)
+  if (!encode_3d(&tm_w, type, f32 ? w_split : w, {cuuint64_t(c), 16, cuuint64_t(cout) * (f32 ? 2 : 1)},
+                 {c * es, 16 * c * es}, {ck, 1, cuuint32_t(bn)}))
     return -4;
   Params p;
   p.scale = static_cast<const float*>(scale);
   p.shift = static_cast<const float*>(shift);
-  p.out = static_cast<bf16*>(out);
-  p.xn_out = static_cast<bf16*>(xn_out);
+  p.out = out;
+  p.xn_out = xn_out;
   p.tiles = static_cast<const int*>(tiles);
   p.n = n;
   p.h = h;
@@ -1246,6 +1457,7 @@ extern "C" int dcvgan_fused_norm_act_conv_tma(const void* x, const void* scale, 
   p.region_rows = region_rows;
   p.region_bytes = l.region_bytes;
   p.wstage_bytes = l.wstage_bytes;
+  p.wpart_bytes = l.wpart_bytes;
   p.zero_off = l.zero_off;
   p.bar_off = l.bar_off;
   p.n_units = n_units;
@@ -1257,16 +1469,15 @@ extern "C" int dcvgan_fused_norm_act_conv_tma(const void* x, const void* scale, 
   p.xn_rows = xn_out != nullptr && rows_ok ? 2 * (tma::kBM / ow) : 0;
   tm_xn = tm_x;  // unused unless xn_rows > 0
   if (p.xn_rows > 0 &&
-      !encode_3d(&tm_xn, xn_out, {cuuint64_t(c), cuuint64_t(w_in), cuuint64_t(n) * h},
-                 {c * es, cuuint64_t(w_in) * c * es}, {cuuint32_t(kCK), cuuint32_t(w_in), cuuint32_t(p.xn_rows)},
-                 swizzle))
+      !encode_3d(&tm_xn, type, xn_out, {cuuint64_t(c), cuuint64_t(w_in), cuuint64_t(n) * h},
+                 {c * es, cuuint64_t(w_in) * c * es}, {ck, cuuint32_t(w_in), cuuint32_t(p.xn_rows)}))
     return -4;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bn) {
-    case 16: return launch<16>(tm_x, tm_w, tm_xn, p, grid, smem, s);
-    case 32: return launch<32>(tm_x, tm_w, tm_xn, p, grid, smem, s);
-    case 64: return launch<64>(tm_x, tm_w, tm_xn, p, grid, smem, s);
-    case 128: return launch<128>(tm_x, tm_w, tm_xn, p, grid, smem, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!f32) return launch_bn<bf16>(bn, tm_x, tm_w, tm_xn, p, grid, smem, s);
+  const int numel = cout * 16 * c;
+  const int blocks = (numel + 255) / 256 < 1024 ? (numel + 255) / 256 : 1024;
+  split_tf32_kernel<<<blocks, 256, 0, s>>>(static_cast<const float*>(w), static_cast<float*>(w_split), numel);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_bn<float>(bn, tm_x, tm_w, tm_xn, p, grid, smem, s);
 }

@@ -13,18 +13,27 @@ skip (``models/cgen.py``).
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
 ``csrc/fused_block.cu`` (replacing the Pallas ``_fused_kernel``) and counts
-the launch in ``fused_norm_act_conv.launches``; on a CPU tensor it runs
+the launch in ``fused_norm_act_conv.launches`` (and by route in
+``fused_norm_act_conv.routes``); on a CPU tensor it runs
 :func:`reference_norm_act_conv`, the plain version. There is no fallback
 from the one to the other.
 
 The kernel's schedule is planned here, by shape, before the launch
 (:func:`plan`): the route (``tma`` for bf16 shapes the TMA kernel takes,
-``mma_sync`` for other bf16 shapes, ``f32``), and for ``tma`` the tile
-size, the ring depths, the grid, the shared memory and the table of tiles
-the kernel walks (:func:`tile_table`: each tile's pixels, channels, staged
-rows and live taps), which the wrapper copies to the card once per shape.
-The CUDA source checks the shared memory against its own layout and the
-staged rows against its own count of the rows a tile reads.
+``mma_sync`` for other bf16 shapes, ``tf32x3`` for f32 shapes the TMA
+kernel takes, ``f32`` for other f32 shapes), and for the two TMA routes the
+tile size, the ring depths, the grid, the shared memory and the table of
+tiles the kernel walks (:func:`tile_table`: each tile's pixels, channels,
+staged rows and live taps), which the wrapper copies to the card once per
+shape. The CUDA source checks the shared memory against its own layout and
+the staged rows against its own count of the rows a tile reads.
+
+``tf32x3`` is the TMA kernel on f32 with error-compensated TF32 products:
+each operand is split into two TF32 parts (v = hi + lo) and three
+tensor-core products (lo*hi + hi*lo + hi*hi) accumulate in f32, which holds
+the output within the f32 tolerance of a full-f32 convolution. The wrapper
+allocates the scratch that receives the weight's two parts; the library
+fills it before the kernel runs.
 
 Layouts are torch's: ``x`` is (N, C, H, W) and the weight (Cout, C, 4, 4),
 both in ``torch.channels_last`` memory format, so the kernel reads NHWC with
@@ -33,6 +42,7 @@ contiguous channels and the weight as a Cout x (4*4*C) matrix.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -52,7 +62,19 @@ _CL = torch.channels_last
 
 TILE_M = 128  # output pixels per TMA tile: two consumer warpgroups of 64 rows
 SMEM_LIMIT = 232_448  # dynamic shared memory one block may opt into on Hopper
-CHUNK = 64  # input channels per pipeline stage: 128-byte rows, TMA's widest swizzle
+# a staged pixel's or weight row's channels a pipeline stage (64 bf16, 32
+# f32): TMA's widest swizzle
+ROW_BYTES = 128
+# weight parts per stage: f32 stages the high and the low TF32 part
+WEIGHT_PARTS = {torch.bfloat16: 1, torch.float32: 2}
+# the TMA kernel's route and the route of the shapes it cannot take, by dtype
+TMA_ROUTE = {torch.bfloat16: "tma", torch.float32: "tf32x3"}
+OTHER_ROUTE = {torch.bfloat16: "mma_sync", torch.float32: "f32"}
+# channels a multiple of this: 16-byte rows for TMA
+CHANNEL_MULTIPLE = {torch.bfloat16: 8, torch.float32: 4}
+# output channels per tile at most: f32 keeps two accumulators and a tap's
+# split A fragments in the consumers' registers (csrc/fused_block.cu: kMaxBN)
+MAX_BN = {torch.bfloat16: 128, torch.float32: 64}
 REGION_STAGES = 2
 MAX_W_STAGES = 8
 MIN_W_STAGES = 2
@@ -63,11 +85,11 @@ TILE_COLUMNS = ("m0", "m1", "n0", "p_lo", "live")
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one call runs: ``route`` and, for ``tma``, the kernel's schedule."""
+    """How one call runs: ``route`` and, for the TMA routes, the kernel's schedule."""
 
-    route: str  # "tma", "mma_sync" (other bf16 shapes) or "f32"
-    bn: int = 0  # output channels per tile (divides Cout, at most 128)
-    w_stages: int = 0  # weight ring depth: one tap x CHUNK channels x bn rows each
+    route: str  # "tma", "mma_sync" (other bf16 shapes), "tf32x3" or "f32" (other f32 shapes)
+    bn: int = 0  # output channels per tile (divides Cout, at most MAX_BN)
+    w_stages: int = 0  # weight ring depth: one tap x ROW_BYTES of channels x bn rows x parts each
     region_rows: int = 0  # flattened input rows staged per tile and chunk
     grid: int = 0  # CTAs, persistent: CTA b runs units b, b + grid, ...
     smem: int = 0  # dynamic shared memory bytes (the CUDA layout's, checked there)
@@ -124,14 +146,14 @@ def tile_table(n: int, h: int, w: int, bn: int, cout: int) -> torch.Tensor:
     return torch.stack([t[:, 0], t[:, 1], n0, t[:, 2], t[:, 4]], 1).to(torch.int32).contiguous()
 
 
-def _smem_bytes(w: int, bn: int, w_stages: int, rows: int) -> int:
+def _smem_bytes(w: int, bn: int, w_stages: int, rows: int, parts: int = 1) -> int:
     """The CUDA source's ``tma::layout(...).total``."""
 
     def up(v: int, m: int) -> int:
         return -(-v // m) * m
 
-    region = up(rows * w * CHUNK * 2, 1024)
-    wstage = up(bn * CHUNK * 2, 1024)
+    region = up(rows * w * ROW_BYTES, 1024)
+    wstage = parts * up(bn * ROW_BYTES, 1024)
     return 1024 + REGION_STAGES * region + w_stages * wstage + 128 + 8 * (
         3 * REGION_STAGES + 2 * w_stages
     )
@@ -144,35 +166,37 @@ def plan(
 ) -> Plan:
     """The route and schedule of one call, from its shape alone.
 
-    The TMA route takes bf16 with C a multiple of 8, Cout a multiple of 16,
-    W <= 256 and the rows of a tile <= 256 (TMA box limits), and a layout
-    that fits in shared memory; other bf16 shapes take the mma.sync kernel.
+    The TMA kernel takes C a multiple of 8 (bf16) or 4 (f32), Cout a
+    multiple of 16, W <= 256 and the rows of a tile <= 256 (TMA box limits),
+    and a layout that fits in shared memory: route ``tma`` for bf16,
+    ``tf32x3`` for f32. Other shapes take the mma.sync kernel (bf16) or the
+    FMA kernel (``f32``).
 
     ``aligned``: every pointer is 16-byte aligned. ``sms``: the card's
     streaming multiprocessors.
     """
-    if dtype == torch.float32:
-        return Plan("f32")
+    other = Plan(OTHER_ROUTE[dtype])
     m = n * (h // 2) * (w // 2)
-    if not (aligned and c % 8 == 0 and cout % 16 == 0 and w <= 256 and m > 0):
-        return Plan("mma_sync")
+    if not (aligned and c % CHANNEL_MULTIPLE[dtype] == 0 and cout % 16 == 0 and w <= 256 and m > 0):
+        return other
     t = _m_tiles(n, h, w)
     rows = int((t[:, 3] - t[:, 2]).max()) + 1
     if rows > 256:
-        return Plan("mma_sync")
+        return other
     m_tiles = len(t)
-    bn = next(b for b in (128, 64, 32, 16) if cout % b == 0)
+    bn = next(b for b in (128, 64, 32, 16) if cout % b == 0 and b <= MAX_BN[dtype])
     # a small site splits Cout until the grid covers at least half the card
     while m_tiles * (cout // bn) < sms // 2 and bn >= 32:
         bn //= 2
-    fixed = _smem_bytes(w, bn, 0, rows)
-    stages = min(MAX_W_STAGES, (SMEM_LIMIT - fixed) // (_smem_bytes(w, bn, 1, rows) - fixed))
+    parts = WEIGHT_PARTS[dtype]
+    fixed = _smem_bytes(w, bn, 0, rows, parts)
+    stages = min(MAX_W_STAGES, (SMEM_LIMIT - fixed) // (_smem_bytes(w, bn, 1, rows, parts) - fixed))
     if stages < MIN_W_STAGES:
-        return Plan("mma_sync")
+        return other
     units = m_tiles * (cout // bn)
     return Plan(
-        "tma", bn=bn, w_stages=stages, region_rows=rows, grid=min(units, sms),
-        smem=_smem_bytes(w, bn, stages, rows), m_tiles=m_tiles, units=units,
+        TMA_ROUTE[dtype], bn=bn, w_stages=stages, region_rows=rows, grid=min(units, sms),
+        smem=_smem_bytes(w, bn, stages, rows, parts), m_tiles=m_tiles, units=units,
     )
 
 
@@ -240,7 +264,7 @@ def reference_norm_act_conv(
 
 
 def bind(lib: ctypes.CDLL):
-    """The two C entries of a ``fused_block`` library: (mma.sync and f32, TMA)."""
+    """The two C entries of a ``fused_block`` library: (mma.sync and FMA, TMA)."""
     old = lib.dcvgan_fused_norm_act_conv
     old.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.c_float,
@@ -248,7 +272,7 @@ def bind(lib: ctypes.CDLL):
     ]
     old.restype = ctypes.c_int
     tma = lib.dcvgan_fused_norm_act_conv_tma
-    tma.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float] + [
+    tma.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] + [
         ctypes.c_int
     ] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     tma.restype = ctypes.c_int
@@ -266,7 +290,7 @@ def _tiles_on(device: torch.device, n: int, h: int, w: int, bn: int, cout: int) 
 
 
 _ERRORS = {
-    -1: "the input rows a bf16 tile reads do not fit in shared memory",
+    -1: "the input rows a bf16 mma.sync tile reads do not fit in shared memory",
     -2: "the plan's shared memory is not the CUDA source's layout",
     -5: "the plan stages fewer input rows than a tile reads",
     -3: "libcuda has no cuTensorMapEncodeTiled",
@@ -305,10 +329,14 @@ def launch(
     old, tma = kernels or _kernels()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if p.route == "tma":
+        if p.route in ("tma", "tf32x3"):
             tiles = _tiles_on(x.device, n, h, wd, p.bn, cout)
+            # tf32x3: the weight's high and low TF32 parts, written by the library
+            split = torch.empty(2 * w.numel(), dtype=torch.float32, device=x.device) if (
+                p.route == "tf32x3") else None
             err = tma(
-                x.data_ptr(), scale.data_ptr(), shift.data_ptr(), w.data_ptr(), out.data_ptr(),
+                _DTYPE_CODES[x.dtype], x.data_ptr(), scale.data_ptr(), shift.data_ptr(), w.data_ptr(),
+                split.data_ptr() if split is not None else None, out.data_ptr(),
                 xn_ptr, n, h, wd, c, cout, float(negative_slope),
                 p.bn, p.w_stages, p.region_rows, tiles.data_ptr(), p.units, p.grid, p.smem, stream,
             )
@@ -349,9 +377,12 @@ def fused_norm_act_conv(
     out = torch.empty(
         (n, w.shape[0], h // 2, wd // 2), dtype=x.dtype, device=x.device, memory_format=_CL
     )
-    launch(plan_for(x, w, out, xn_out), x, scale, shift, w, out, negative_slope, xn_out)
+    p = plan_for(x, w, out, xn_out)
+    launch(p, x, scale, shift, w, out, negative_slope, xn_out)
     fused_norm_act_conv.launches += 1
+    fused_norm_act_conv.routes[p.route] += 1
     return out
 
 
 fused_norm_act_conv.launches = 0
+fused_norm_act_conv.routes = collections.Counter()

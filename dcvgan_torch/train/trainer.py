@@ -14,7 +14,15 @@ the JAX trainer's:
 - checkpoints hold the whole state and resume, also inside an epoch;
 - SIGTERM and SIGINT end the loop through a forced final checkpoint;
 - with an evaluator (``eval/evaluator.py``), the configured metrics are
-  scored at step 0 and every ``evaluation_interval`` steps.
+  scored at step 0 and every ``evaluation_interval`` steps;
+- ``trainer.profile`` traces the training loop with ``torch.profiler`` (CPU,
+  and CUDA on a card) into a Chrome trace under ``<run_dir>/profile``, one
+  file a rank, stopped in a ``finally`` as the JAX trainer stops its
+  ``jax.profiler`` trace;
+- ``trainer.debug_nans`` raises ``FloatingPointError`` at the first step
+  whose losses or gradients are not finite, naming the step, the losses
+  and the models, where the JAX trainer's ``jax_debug_nans`` raises; the
+  check costs one device sync a step and runs only when the key is on.
 
 Under a process group (``parallel/mesh.py``; ``torchrun`` and
 ``cli.train``) every rank runs this loop on its own device: the trainer
@@ -288,6 +296,41 @@ class Trainer:
             for k, v in zip(LOSS_NAMES, row):
                 self.logger.update(k, v)
 
+    def _start_profile(self) -> torch.profiler.profile:
+        """``trainer.profile``: start tracing the host and, on a card, the
+        device."""
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof: torch.profiler.profile) -> None:
+        """Stop the trace and write it as a Chrome trace, one file a rank."""
+        prof.stop()
+        out = self.run_dir / "profile"
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / f"rank{self.layout.rank}-{time.strftime('%Y%m%d-%H%M%S')}.pt.trace.json"
+        prof.export_chrome_trace(str(path))
+        self.logger.info(f"profile: {path}")
+
+    def _raise_if_not_finite(self, iteration: int, metrics: Dict[str, torch.Tensor]) -> None:
+        """``trainer.debug_nans``: raise ``FloatingPointError`` if a loss of
+        step ``iteration`` or a gradient the step left on a model's
+        parameters is NaN or infinite. One transfer of the flags decides."""
+        names = list(LOSS_NAMES) + [f"{name} gradients" for name in self.state.models]
+        flags = [torch.isfinite(metrics[k]).all() for k in LOSS_NAMES]
+        for module in self.state.models.values():
+            grads = [p.grad for p in module.parameters() if p.grad is not None]
+            flags.append(torch.stack([torch.isfinite(g).all() for g in grads]).all() if grads
+                         else torch.ones((), dtype=torch.bool, device=self.device))
+        bad = [name for name, ok in zip(names, torch.stack(flags).tolist()) if not ok]
+        if bad:
+            raise FloatingPointError(
+                f"trainer.debug_nans: step {iteration} has NaN or infinite values in {', '.join(bad)}"
+            )
+
     def _train_loop(self) -> GANState:
         cfg, logger = self.config, self.logger
         for name in LOSS_NAMES:
@@ -320,49 +363,56 @@ class Trainer:
         k = cfg.trainer.max_inflight_steps if self.device.type == "cuda" else 0
 
         stopped = False
-        for _ in range(self.epoch, cfg.n_epochs):
-            if stopped:
-                break
-            self.epoch += 1
-            skip, self._resume_skip = self._resume_skip, 0
-            for batch in self.loader.epoch_iterator(epoch=self.epoch - 1, start_batch=skip):
-                stopped = stop_anywhere(self._stop.is_set(), self.layout)
+        prof = self._start_profile() if cfg.trainer.profile else None
+        try:
+            for _ in range(self.epoch, cfg.n_epochs):
                 if stopped:
                     break
-                self.state, metrics = self.gan.train_step(
-                    self.state, self.to_device(batch), self.base_key
-                )
-                pending.append(metrics)
-                iters_since_flush += 1
-                iteration += 1
-
-                # backpressure: wait for the step enqueued k steps ago, so
-                # that the buffers of the batches in flight stay bounded
-                if k:
-                    done = torch.cuda.Event()
-                    done.record()
-                    inflight.append(done)
-                    if len(inflight) > k:
-                        inflight.popleft().synchronize()
-
-                if iteration % cfg.snapshot_interval == 0:
-                    self.save()
-                if iteration % cfg.log_samples_interval == 0:
-                    self.log_samples(iteration)
-                if iteration % cfg.evaluation_interval == 0:
-                    self.evaluate(iteration)
-                if iteration % cfg.log_interval == 0:
-                    self._flush(pending)
-                    pending = []
-                    now = time.time()
-                    logger.update(
-                        "iters_per_sec", iters_since_flush / max(1e-9, now - t_last_flush)
+                self.epoch += 1
+                skip, self._resume_skip = self._resume_skip, 0
+                for batch in self.loader.epoch_iterator(epoch=self.epoch - 1, start_batch=skip):
+                    stopped = stop_anywhere(self._stop.is_set(), self.layout)
+                    if stopped:
+                        break
+                    self.state, metrics = self.gan.train_step(
+                        self.state, self.to_device(batch), self.base_key
                     )
-                    t_last_flush, iters_since_flush = now, 0
-                    logger.update("iteration", iteration)
-                    logger.update("epoch", self.epoch)
-                    logger.log()
-                    logger.clear()
+                    pending.append(metrics)
+                    iters_since_flush += 1
+                    iteration += 1
+                    if cfg.trainer.debug_nans:
+                        self._raise_if_not_finite(iteration, metrics)
+
+                    # backpressure: wait for the step enqueued k steps ago, so
+                    # that the buffers of the batches in flight stay bounded
+                    if k:
+                        done = torch.cuda.Event()
+                        done.record()
+                        inflight.append(done)
+                        if len(inflight) > k:
+                            inflight.popleft().synchronize()
+
+                    if iteration % cfg.snapshot_interval == 0:
+                        self.save()
+                    if iteration % cfg.log_samples_interval == 0:
+                        self.log_samples(iteration)
+                    if iteration % cfg.evaluation_interval == 0:
+                        self.evaluate(iteration)
+                    if iteration % cfg.log_interval == 0:
+                        self._flush(pending)
+                        pending = []
+                        now = time.time()
+                        logger.update(
+                            "iters_per_sec", iters_since_flush / max(1e-9, now - t_last_flush)
+                        )
+                        t_last_flush, iters_since_flush = now, 0
+                        logger.update("iteration", iteration)
+                        logger.update("epoch", self.epoch)
+                        logger.log()
+                        logger.clear()
+        finally:
+            if prof is not None:
+                self._stop_profile(prof)
 
         stopped = stopped or stop_anywhere(self._stop.is_set(), self.layout)
         if stopped:

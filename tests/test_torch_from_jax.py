@@ -142,8 +142,9 @@ def test_every_config_loads_like_the_jax_loader():
 
 def test_training_schema_matches_the_jax_loader():
     """Every key the port reads has the JAX loader's value in every config,
-    defaults included; the keys it drops have no meaning on one GPU."""
-    dropped = {"profile", "debug_nans", "donate_state"}
+    defaults included; the one key it drops (``donate_state``) has no
+    meaning in eager PyTorch."""
+    dropped = {"donate_state"}
     for p in sorted((REPO / "configs").glob("*.yml")):
         port, ref = port_load_config(p).to_dict(), jax_load_config(p).to_dict()
         ref["trainer"] = {k: v for k, v in ref["trainer"].items() if k not in dropped}

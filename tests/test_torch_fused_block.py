@@ -184,9 +184,9 @@ SCHEDULE_CASES = [(3, h, h, c, co) for h, c, co in FLAGSHIP_SITES] + [
 ]
 
 
-def _tma_plan(n, h, w, c, cout):
-    p = port.plan(n, h, w, c, cout, torch.bfloat16)
-    assert p.route == "tma", p
+def _tma_plan(n, h, w, c, cout, dtype=torch.bfloat16):
+    p = port.plan(n, h, w, c, cout, dtype)
+    assert p.route == {torch.bfloat16: "tma", torch.float32: "tf32x3"}[dtype], p
     return p
 
 
@@ -211,9 +211,8 @@ def _reads(n, h, w):
     return lo, hi, taps
 
 
-@pytest.mark.parametrize("n,h,w,c,cout", SCHEDULE_CASES)
-def test_plan_tiles_partition_the_output_once(n, h, w, c, cout):
-    p = _tma_plan(n, h, w, c, cout)
+def _tiles_partition_the_output_once(n, h, w, c, cout, dtype):
+    p = _tma_plan(n, h, w, c, cout, dtype)
     t = _table(p, n, h, w, cout)
     m = n * (h // 2) * (w // 2)
     covered = np.zeros((m, cout), np.int32)
@@ -226,8 +225,18 @@ def test_plan_tiles_partition_the_output_once(n, h, w, c, cout):
 
 
 @pytest.mark.parametrize("n,h,w,c,cout", SCHEDULE_CASES)
-def test_plan_gives_every_input_pixel_one_xn_out_owner(n, h, w, c, cout):
-    p = _tma_plan(n, h, w, c, cout)
+def test_plan_tiles_partition_the_output_once(n, h, w, c, cout):
+    _tiles_partition_the_output_once(n, h, w, c, cout, torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,h,w,c,cout", SCHEDULE_CASES)
+def test_f32_plan_tiles_partition_the_output_once(n, h, w, c, cout):
+    # 32 channels a stage and tiles at most 64 channels wide
+    _tiles_partition_the_output_once(n, h, w, c, cout, torch.float32)
+
+
+def _every_input_pixel_has_one_xn_out_owner(n, h, w, c, cout, dtype):
+    p = _tma_plan(n, h, w, c, cout, dtype)
     t = _table(p, n, h, w, cout)
     oh, ow = h // 2, w // 2
     lo, hi, _ = _reads(n, h, w)
@@ -246,17 +255,43 @@ def test_plan_gives_every_input_pixel_one_xn_out_owner(n, h, w, c, cout):
     np.testing.assert_array_equal(owners, 1)
 
 
+@pytest.mark.parametrize("n,h,w,c,cout", SCHEDULE_CASES)
+def test_plan_gives_every_input_pixel_one_xn_out_owner(n, h, w, c, cout):
+    _every_input_pixel_has_one_xn_out_owner(n, h, w, c, cout, torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,h,w,c,cout", SCHEDULE_CASES)
+def test_f32_plan_gives_every_input_pixel_one_xn_out_owner(n, h, w, c, cout):
+    _every_input_pixel_has_one_xn_out_owner(n, h, w, c, cout, torch.float32)
+
+
+def _fits_shared_memory(ngf, n, dtype):
+    for h, c, cout in _cgen_sites(ngf):
+        p = _tma_plan(n, h, h, c, cout, dtype)
+        assert p.smem <= port.SMEM_LIMIT == 232_448
+        assert port.MIN_W_STAGES <= p.w_stages <= port.MAX_W_STAGES
+        assert p.region_rows <= 256 and p.bn <= port.MAX_BN[dtype] and cout % p.bn == 0
+        # the CUDA layout: two region stages of 128-byte rows, w_stages
+        # weight stages of bn 128-byte rows a part, a zero row, the barriers
+        parts = {torch.bfloat16: 1, torch.float32: 2}[dtype]
+        region = -(-p.region_rows * h * 128 // 1024) * 1024
+        assert p.smem == 1024 + 2 * region + p.w_stages * parts * p.bn * 128 + 128 + 8 * (6 + 2 * p.w_stages)
+
+
 @pytest.mark.parametrize("ngf", [8, 32, 64])
 @pytest.mark.parametrize("n", [16, 320, 4096])
 def test_plan_fits_shared_memory_at_every_cgen_site(ngf, n):
-    for h, c, cout in _cgen_sites(ngf):
-        p = _tma_plan(n, h, h, c, cout)
-        assert p.smem <= port.SMEM_LIMIT == 232_448
-        assert port.MIN_W_STAGES <= p.w_stages <= port.MAX_W_STAGES
-        assert p.region_rows <= 256 and p.bn <= 128 and cout % p.bn == 0
+    _fits_shared_memory(ngf, n, torch.bfloat16)
 
 
-def test_every_config_cgen_site_takes_the_tma_route():
+@pytest.mark.parametrize("ngf", [8, 32, 64])
+@pytest.mark.parametrize("n", [16, 320, 4096])
+def test_f32_plan_fits_shared_memory_at_every_cgen_site(ngf, n):
+    _fits_shared_memory(ngf, n, torch.float32)
+
+
+def _config_cgen_sites():
+    """(config name, frames of one batch, H, C, Cout) of every config's cgen sites."""
     from pathlib import Path
 
     from dcvgan_torch.config import load_config
@@ -265,17 +300,35 @@ def test_every_config_cgen_site_takes_the_tma_route():
     assert paths
     for path in paths:
         cfg = load_config(path)
-        n = cfg.batchsize * cfg.video_length
         for h, c, cout in _cgen_sites(cfg.cgen.ngf, cfg.image_size):
-            p = port.plan(n, h, h, c, cout, torch.bfloat16)
-            assert p.route == "tma", (path.name, h, c, cout, p)
+            yield path.name, cfg.batchsize * cfg.video_length, h, c, cout
+
+
+def test_every_config_cgen_site_takes_the_tma_route():
+    for name, n, h, c, cout in _config_cgen_sites():
+        p = port.plan(n, h, h, c, cout, torch.bfloat16)
+        assert p.route == "tma", (name, h, c, cout, p)
+
+
+def test_every_config_cgen_site_in_f32_takes_the_tf32x3_route():
+    # trainer.precision: float32 (debug-mock-depth and every config run in f32)
+    for name, n, h, c, cout in _config_cgen_sites():
+        for frames in (n, 25 * 16, 4096):  # a batch, log_samples' round, the flagship serve call
+            p = port.plan(frames, h, h, c, cout, torch.float32)
+            assert p.route == "tf32x3", (name, frames, h, c, cout, p)
 
 
 def test_plan_routes_other_shapes_to_the_old_kernels():
     assert port.plan(3, 8, 8, 12, 8, torch.bfloat16).route == "mma_sync"  # C % 8
     assert port.plan(3, 8, 8, 24, 40, torch.bfloat16).route == "mma_sync"  # Cout % 16
     assert port.plan(3, 32, 32, 64, 128, torch.bfloat16, aligned=False).route == "mma_sync"
-    assert port.plan(3, 32, 32, 64, 128, torch.float32).route == "f32"
+    # f32: the TMA kernel on error-compensated TF32, except where TMA cannot go
+    assert port.plan(3, 32, 32, 64, 128, torch.float32).route == "tf32x3"
+    assert port.plan(3, 8, 8, 12, 16, torch.float32).route == "tf32x3"  # C % 4 == 0 is enough
+    assert port.plan(3, 8, 8, 6, 16, torch.float32).route == "f32"  # C % 4
+    assert port.plan(3, 8, 8, 12, 8, torch.float32).route == "f32"  # Cout % 16
+    assert port.plan(3, 32, 32, 64, 128, torch.float32, aligned=False).route == "f32"
+    assert port.plan(2, 4, 512, 64, 64, torch.float32).route == "f32"  # W > 256: wider than a box
     # the flagship sites: one CTA per SM at most, every SM but a few busy
     for h, c, cout in FLAGSHIP_SITES:
         p = _tma_plan(4096, h, h, c, cout)
@@ -319,3 +372,105 @@ def test_tile_table_at_full_size_matches_the_pixel_rule(n, h, w):
     tiles = np.concatenate([taps, np.zeros(pad, taps.dtype)]).reshape(-1, port.TILE_M)
     np.testing.assert_array_equal(t[:, 4], np.bitwise_or.reduce(tiles, axis=1))
     np.testing.assert_array_equal(t[:, 3], lo[t[:, 0]])
+
+
+# ---- the tf32x3 route's arithmetic (csrc/fused_block.cu), emulated in numpy
+
+# |kernel - plain| <= atol + rtol * |plain| for f32 outputs (chip_smoke.py's OUT_TOL)
+F32_ATOL, F32_RTOL = 1e-4, 1e-4
+
+
+def _tf32(v):
+    """``cvt.rna.tf32.f32``: float32 rounded to 10 mantissa bits, to nearest,
+    ties away from zero (on the bits: add half of the dropped part, clear it)."""
+    bits = np.asarray(v, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(v):
+    """v = hi + lo, each part TF32 (v - hi is exact in float32)."""
+    hi = _tf32(v)
+    return hi, _tf32(np.asarray(v, np.float32) - hi)
+
+
+def _patches(act, h, c):
+    """im2col of a (N, H, H, C) activation for conv4x4 s2 p1: (N*OH*OW, 16*C)
+    in (kh, kw, c) order, padded taps 0."""
+    n, oh = act.shape[0], h // 2
+    padded = np.zeros((n, h + 2, h + 2, c), act.dtype)
+    padded[:, 1:-1, 1:-1] = act
+    cols = [padded[:, kh:kh + 2 * oh:2, kw:kw + 2 * oh:2] for kh in range(4) for kw in range(4)]
+    return np.concatenate(cols, axis=-1).reshape(n * oh * oh, 16 * c)
+
+
+def _kernel_sum(a_parts, b_parts, c):
+    """The kernel's accumulation: per tap (C consecutive K entries) the sum
+    of the given products, as an f32 partial sum, added into an f32
+    accumulator rounded to nearest. TF32 x TF32 products are exact in f32."""
+    acc = np.zeros((a_parts[0].shape[0], b_parts[0].shape[0]), np.float32)
+    for t in range(16):
+        k = slice(t * c, (t + 1) * c)
+        part = sum(a[:, k].astype(np.float64) @ b[:, k].T.astype(np.float64)
+                   for a, b in zip(a_parts, b_parts))
+        acc = (acc + part.astype(np.float32)).astype(np.float32)
+    return acc
+
+
+def test_tf32_split_is_two_tf32_parts():
+    v = np.random.default_rng(7).normal(size=10_000).astype(np.float32) * 10.0 ** np.arange(-4, 6).repeat(1000)
+    hi, lo = _split(v)
+    assert not (hi.view(np.uint32) & 0x1FFF).any() and not (lo.view(np.uint32) & 0x1FFF).any()
+    assert (np.abs(lo) <= 2.0**-11 * np.abs(v)).all()
+    # the parts keep 21 or more bits of v, one TF32 value 11
+    assert (np.abs(v.astype(np.float64) - hi - lo) <= 2.0**-21 * np.abs(v)).all()
+    assert (np.abs(v.astype(np.float64) - hi) > 2.0**-14 * np.abs(v)).any()
+
+
+def test_three_tf32_products_hold_the_f32_tolerance_where_one_does_not():
+    # down3's shape (C = 256: 4096 products an output) at 2 frames and 16 output channels
+    rng = np.random.default_rng(8)
+    n, h, c, cout = 2, 8, 256, 16
+    x = rng.normal(size=(n, h, h, c)).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    shift = (rng.normal(size=c) * 0.2).astype(np.float32)
+    act = x * scale + shift
+    act = np.where(act >= 0, act, act * np.float32(0.2)).astype(np.float32)
+    a = _patches(act, h, c)
+    b = (rng.normal(size=(cout, 16 * c)) / np.sqrt(16 * c)).astype(np.float32)  # Cout x (kh, kw, c)
+    want = a.astype(np.float64) @ b.T.astype(np.float64)
+    tol = F32_ATOL + F32_RTOL * np.abs(want)
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    # the small terms first: a_lo * b_hi + a_hi * b_lo + a_hi * b_hi
+    three = _kernel_sum([al, ah, ah], [bh, bl, bh], c)
+    assert (np.abs(three - want) <= tol).all()
+    assert np.abs(three - want).max() <= 2e-5
+    one = _kernel_sum([ah], [bh], c)  # one TF32 product: the control
+    assert (np.abs(one - want) > tol).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slope,shift_offset", [(0.2, 0.5), (0.01, 1.0)])
+@pytest.mark.parametrize(
+    "n,h,w,c,cout,route",
+    [
+        (3, 16, 16, 128, 256, "tf32x3"),  # a partial last tile and an odd tile count
+        (300, 2, 2, 256, 256, "tf32x3"),  # down5's 2x2 input, 3 tiles
+        (5, 4, 12, 64, 64, "tf32x3"),  # OW < 8, W != H
+        (7, 6, 6, 8, 16, "tf32x3"),  # C = 8 (debug-mock-depth's ngf): a quarter chunk
+        (40, 6, 10, 64, 64, "tf32x3"),  # OH*OW = 15: tiles span images
+        (3, 8, 8, 12, 8, "f32"),  # Cout % 16: the FMA kernel
+    ],
+)
+def test_f32_routes_match_plain_on_gpu(cuda, n, h, w, c, cout, route, slope, shift_offset):
+    x, scale, shift, w4 = _case(n, h, w, c, cout, seed=9, shift_offset=shift_offset)
+    xt = nchw(x).to(cuda)
+    st, sh = torch.from_numpy(scale).to(cuda), torch.from_numpy(shift).to(cuda)
+    wt = hwio_to_torch(w4).to(cuda)
+    xn_k, xn_p = torch.empty_like(xt), torch.empty_like(xt)
+    out = torch.empty(n, cout, h // 2, w // 2, device=cuda, memory_format=torch.channels_last)
+    assert port.plan_for(xt, wt, out, xn_k).route == route
+    got = port.fused_norm_act_conv(xt, st, sh, wt, slope, xn_out=xn_k)
+    want = port.reference_norm_act_conv(xt, st, sh, wt, slope, xn_out=xn_p)
+    torch.cuda.synchronize()
+    within(nhwc(got.cpu()), nhwc(want.cpu()), F32_ATOL, F32_RTOL)
+    assert torch.equal(xn_k, xn_p)

@@ -114,7 +114,22 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
     (c) ``time 8`` of 16 frames raises the halo error before any step; both
     kernels held at this path's shapes first (20 and 10 rows a data row,
     400 frames);
-14. a ``{"kernels": [...]}`` line, the card's line, and last
+14. the head-to-head path (``dcvgan_torch.tools.headtohead``, the
+    repository's quality protocol, ``HEADTOHEAD.md``): both kernels held at
+    this path's shapes first (batch 8; ngf 32's cgen sites at 512 and 400
+    frames); the tool's scorer over the JAX package's committed sample sets
+    (``results/headtohead/tpurun_samples{,_seed3}``) against a regenerated
+    real set, each FID and IS within 1% of the JAX scorer's record
+    (``tpu_scores{,_seed3}.json``); then ``headtohead.main`` on
+    ``configs/headtohead-tpu.yml`` as it stands (1,600 bf16 steps at batch
+    8, ngf 32, an evaluation of 128 videos every 200 steps, 8 snapshots of
+    128 mp4 files, IS, FID and PRD), counters from 0 just before and read
+    just after: ``dequantize_video`` once a step, ``fused_norm_act_conv`` 5
+    per sampling round and none inside a step; finite losses, first critic
+    losses within 0.2 of 2 ln 2, finite scores, PRD in [0, 1] and the best
+    FID of the 8 points at most 1,000; train it/s, each stage's seconds and
+    peak memory;
+15. a ``{"kernels": [...]}`` line, the card's line, and last
     ``{"ok": true, "device": {...}}``.
 
 Every phase prints its numbers as it goes. Imports nothing of JAX.
@@ -122,6 +137,7 @@ Every phase prints its numbers as it goes. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import http.client
@@ -2896,6 +2912,157 @@ def phase_time(run: dict, card: str, dp: dict) -> dict:
     }
 
 
+# ------------------------------------------------------------ head to head
+# the JAX package's head-to-head run (configs/headtohead-tpu.yml) through
+# the port's tool, dcvgan_torch.tools.headtohead, with the repository's
+# protocol (HEADTOHEAD.md): 128 mp4 files a snapshot, the committed
+# extractor, the real mp4 set of the synthetic tree
+H2H_CONFIG = "headtohead-tpu"
+H2H_METRICS = ["is", "fid", "prd"]
+# the committed sample sets of the JAX package's runs and the scores its
+# scorer recorded for them (tools/score_iters.py); the JAX scorer on the
+# CPU reproduces both files to their 4 decimals from a regenerated real set
+H2H_RECORDS = [("tpurun_samples", "tpu_scores.json"), ("tpurun_samples_seed3", "tpu_scores_seed3.json")]
+H2H_RTOL = 1e-2
+# every recorded run's best FID over its 8 points is 311.7-813.4
+# (HEADTOHEAD.md), every untrained reading above 1,000 (1,387.9 at iteration
+# 0, 1,079-1,767 at 200): a best above this is a training fault
+H2H_BEST_FID = 1000.0
+
+
+@contextlib.contextmanager
+def counting_rounds():
+    """Counts, while inside, the eval-mode sampling rounds
+    (``DCVGAN.sample_videos``: one cgen forward each) and the fused launches
+    made inside train steps; the class is restored after."""
+    from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+    from dcvgan_torch.train.step import DCVGAN
+
+    seen = {"rounds": 0, "in_steps": 0}
+    sample, step = DCVGAN.sample_videos, DCVGAN.train_step
+
+    def counted_sample(self, *args, **kwargs):
+        seen["rounds"] += 1
+        return sample(self, *args, **kwargs)
+
+    def counted_step(self, *args, **kwargs):
+        before = fused_norm_act_conv.launches
+        out = step(self, *args, **kwargs)
+        seen["in_steps"] += fused_norm_act_conv.launches - before
+        return out
+
+    DCVGAN.sample_videos, DCVGAN.train_step = counted_sample, counted_step
+    try:
+        yield seen
+    finally:
+        DCVGAN.sample_videos, DCVGAN.train_step = sample, step
+
+
+def quiet(fn, *args, **kwargs):
+    """``fn``'s result, its standard output printed with a prefix (the
+    tool prints a JSON object a row)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    for line in buf.getvalue().splitlines():
+        print(f"headtohead tool: {line}", flush=True)
+    return out
+
+
+def phase_headtohead(card: str) -> dict:
+    """The head-to-head path (module docstring, phase 14)."""
+    from dcvgan_torch.cli.train import build_dataset
+    from dcvgan_torch.config import load_config
+    from dcvgan_torch.ops.dequant import dequantize_video
+    from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+    from dcvgan_torch.tools import headtohead
+    from dcvgan_torch.train.trainer import Trainer
+
+    path = ROOT / "configs" / f"{H2H_CONFIG}.yml"
+    cfg = load_config(path)
+    if (cfg.batchsize, cfg.cgen.ngf, cfg.trainer.precision, cfg.snapshot_interval) != (8, 32, "bfloat16", 200):
+        raise AssertionError(f"configs/{H2H_CONFIG}.yml is no longer batch 8, ngf 32, bf16, a snapshot "
+                             "every 200 steps")
+    tmp = tempfile.TemporaryDirectory(prefix="dcvgan_h2h_")
+    root = Path(tmp.name)
+
+    # 1. both kernels at this path's shapes: dequant at batch 8, the fused
+    # kernel at ngf 32's cgen sites and the frame counts of a sampling and
+    # evaluation round (32 videos) and of log_samples' round (25)
+    cfg.dataset.processed_root = str(root / "processed")
+    dataset = build_dataset(cfg)
+    dequant_err = check_dequant_batch(device_batches(dataset, cfg.batchsize, 1)[0], "headtohead batch 8")
+    fused_err = max(check_sites(32 * cfg.video_length, "headtohead sampling round", cgen_sites(cfg)),
+                    check_sites(Trainer.NUM_LOG * cfg.video_length, "headtohead log_samples",
+                                cgen_sites(cfg)))
+
+    # 2. the port's scorer against the JAX scorer's record
+    real = headtohead.real_set(root / "processed" / cfg.dataset.name / "train")
+    fingerprint = headtohead.get_extractor().fingerprint
+    worst = 0.0
+    for samples, record in H2H_RECORDS:
+        want = {r["iteration"]: r for r in json.loads((ROOT / "results" / "headtohead" / record).read_text())}
+        rows = quiet(headtohead.score_trajectory, ROOT / "results" / "headtohead" / samples, real, H2H_METRICS)
+        for row in rows:
+            rel = {k: abs(row[k] - want[row["iteration"]][k]) / abs(want[row["iteration"]][k])
+                   for k in ("is", "fid")}
+            worst = max(worst, *rel.values())
+            print(f"headtohead scorer {samples} iteration {row['iteration']}: {json.dumps(row)} against the "
+                  f"record's is {want[row['iteration']]['is']} fid {want[row['iteration']]['fid']} "
+                  f"(relative {rel['is']:.2e}, {rel['fid']:.2e}; extractor {fingerprint})", flush=True)
+            if max(rel.values()) > H2H_RTOL:
+                raise AssertionError(f"{samples} iteration {row['iteration']}: the port's scorer is "
+                                     f"{max(rel.values()):.2e} from the JAX record, beyond {H2H_RTOL:g}")
+
+    # 3. the run: train, sample every snapshot, score the trajectory
+    fused_norm_act_conv.launches = 0
+    dequantize_video.launches = 0
+    # -- main path: counts from 0 ------------------------------------------
+    with counting_rounds() as rounds:
+        summary = quiet(headtohead.main, ["--config", str(path), "--out", str(root / "run"),
+                                          "--metrics", *H2H_METRICS])
+    torch.cuda.synchronize()
+    dq, fused = dequantize_video.launches, fused_norm_act_conv.launches
+    # -- end of main path ----------------------------------------------------
+    steps, rows = summary["steps"], summary["rows"]
+    snapshots = steps // cfg.snapshot_interval
+    # log_samples at step 0 and at the end; an evaluation at step 0 and every
+    # evaluation_interval; each snapshot sampled; rounds of 32 videos
+    want_rounds = 2 + (1 + steps // cfg.evaluation_interval + snapshots) * math.ceil(128 / 32)
+    print(f"headtohead run: {steps} steps; dequantize_video launches {dq}; fused_norm_act_conv "
+          f"launches {fused} in {rounds['rounds']} sampling rounds ({want_rounds} expected), "
+          f"{rounds['in_steps']} inside train steps", flush=True)
+    if steps != cfg.n_epochs * (len(dataset) // cfg.batchsize) or dq != steps:
+        raise AssertionError(f"{steps} steps and {dq} dequant launches: expected one a step of "
+                             f"{cfg.n_epochs} epochs of {len(dataset) // cfg.batchsize} batches")
+    if rounds["rounds"] != want_rounds or fused != 5 * want_rounds or rounds["in_steps"]:
+        raise AssertionError("expected 5 fused launches per cgen forward and none inside a step")
+    if not summary["losses_finite"]:
+        raise AssertionError("a training loss is not finite")
+    for k in ("loss_idis", "loss_vdis", "loss_gdis"):
+        if abs(summary["first_losses"][k] - 2 * math.log(2)) > 0.2:
+            raise AssertionError(f"first-step {k} {summary['first_losses'][k]} is not within 0.2 of 2 ln 2")
+    if [r["iteration"] for r in rows] != [cfg.snapshot_interval * (i + 1) for i in range(snapshots)]:
+        raise AssertionError(f"scored iterations {[r['iteration'] for r in rows]}")
+    for r in rows:
+        print(f"headtohead trajectory {json.dumps(r)} on {card}", flush=True)
+        if not all(math.isfinite(r[k]) for k in r) or not (0 <= r["prd"] <= 1 and 0 <= r["prd_f1_8"] <= 1):
+            raise AssertionError(f"iteration {r['iteration']}: scores {r} not finite or prd outside [0, 1]")
+    best = min(rows, key=lambda r: r["fid"])
+    sec = summary["seconds"]
+    print(f"headtohead: best FID {best['fid']} at iteration {best['iteration']}, endpoint FID {rows[-1]['fid']} "
+          f"(limit {H2H_BEST_FID:g}); train {summary['train_it_per_s']:.3f} it/s at batch {cfg.batchsize} "
+          f"(median of the log windows after the first); wall s train {sec['train']:.1f} sample "
+          f"{sec['sample']:.1f} score {sec['score']:.1f}; peak device memory {summary['peak_memory_gb']:.2f} "
+          f"GB; first losses {json.dumps(summary['first_losses'])} last {json.dumps(summary['last_losses'])}; "
+          f"in-training eval {json.dumps(summary['in_training_eval'])}; on {card}", flush=True)
+    if best["fid"] > H2H_BEST_FID:
+        raise AssertionError(f"best FID {best['fid']} above {H2H_BEST_FID:g}: a training-dynamics fault")
+    tmp.cleanup()
+    return {"dequant_err": dequant_err, "fused_err": fused_err, "dequant_launches": dq,
+            "fused_launches": fused, "scorer_rel": worst}
+
+
 def np_equal(a, b) -> bool:
     return a.shape == b.shape and bool((a == b).all())
 
@@ -2959,6 +3126,7 @@ def main() -> int:
     parallel = phase_data_parallel(run, card)
     timed = phase_time(run, card, parallel)
     run["tmp"].cleanup()
+    h2h = phase_headtohead(card)
     # the fused kernel's launches on the later paths, each counted from 0
     entry["eval_launches"] = evaluation["fused_launches"]
     entry["infer_launches"] = inference["fused_launches"]
@@ -2969,13 +3137,16 @@ def main() -> int:
     # and on the time-sharded paths
     entry["time_sharded_launches"] = timed["fused_launches"]
     dequant_entry["time_sharded_launches"] = timed["dequant_launches"]
+    # and on the head-to-head path
+    entry["headtohead_launches"] = h2h["fused_launches"]
+    dequant_entry["headtohead_launches"] = h2h["dequant_launches"]
     dequant_entry["max_abs_err"] = max(dequant_entry["max_abs_err"], parallel["dequant_err"],
-                                       timed["dequant_err"])
+                                       timed["dequant_err"], h2h["dequant_err"])
     # and its comparisons at each path's frame count
     entry["max_abs_err"] = max(entry["max_abs_err"], run["fused_err"], levers["fused_err"],
                                *(r["fused_err"] for r in datasets["runs"].values()),
                                evaluation["fused_err"], inference["fused_err"], served["fused_err"],
-                               parallel["fused_err"], timed["fused_err"])
+                               parallel["fused_err"], timed["fused_err"], h2h["fused_err"])
 
     print(json.dumps({"kernels": [entry, dequant_entry]}))
     print(card_line())

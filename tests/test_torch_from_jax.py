@@ -186,7 +186,7 @@ import importlib, importlib.abc, pkgutil, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "dcvgan_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "dcvgan_tpu", "tools"):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -201,9 +201,9 @@ for n in ("models.discriminators", "losses", "ops.dequant", "train.checkpoint", 
           "eval.features", "eval.evaluator", "cli.evaluate", "cli.infer", "cli.import_torch",
           "compat.torch_import", "native", "data.preprocess", "data.preprocess.surreal",
           "data.preprocess.isogd", "cli.preprocess", "utils.debug", "utils.video_np",
-          "parallel", "parallel.mesh", "parallel.temporal"):
+          "parallel", "parallel.mesh", "parallel.temporal", "tools.headtohead"):
     assert "dcvgan_torch." + n in names, n
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "dcvgan_tpu")]
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "dcvgan_tpu", "tools")]
 assert not bad, bad
 print(len(names))
 """

@@ -129,7 +129,26 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
     losses within 0.2 of 2 ln 2, finite scores, PRD in [0, 1] and the best
     FID of the 8 points at most 1,000; train it/s, each stage's seconds and
     peak memory;
-15. a ``{"kernels": [...]}`` line, the card's line, and last
+15. the tools' path (``dcvgan_torch.tools.{extractor,multiembed,demo}``):
+    (a) ``python -m dcvgan_torch.tools.extractor``'s ``main`` at the v2
+    file's widths (width 32, feature dim 128, batch 32, 16x64x64, seed 42)
+    for 400 steps, its
+    steps/s, host ms to render a batch, ms a step on the card and peak
+    memory, a holdout accuracy of at least 0.40 on 512 clips, the npz
+    written under ``chiprun_out/tools`` and loaded back with its metadata;
+    (b) the 11 committed head-to-head sample sets scored against phase 14's
+    real set under ``assets/extractor-synthetic{,-v2}.npz`` and (a)'s file,
+    every v1 and v2 row's IS and FID within 1e-3 relative of
+    ``results/multiembed_scores_v2.json``, the four no-regression flags of
+    each embedding printed; (c) the fused kernel held at the demo's frame
+    count (4 videos, N = 64) at ngf 32's cgen sites and its routes there
+    printed for ngf 32 and 64, then ``demo.main`` on phase 14's run
+    directory (its functions other than the charts where matplotlib is
+    absent), counters from 0 just before and read just after:
+    ``metrics.csv`` a row a log window, a strip per checkpoint (8),
+    ``final_samples.mp4`` as (16, 64, 256, 3) uint8, ``fused_norm_act_conv``
+    5 launches a checkpoint on the ``tma`` route; the phase's seconds;
+16. a ``{"kernels": [...]}`` line, the card's line, and last
     ``{"ok": true, "device": {...}}``.
 
 Every phase prints its numbers as it goes. Imports nothing of JAX.
@@ -147,6 +166,8 @@ import io
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2515,7 +2536,10 @@ def child(spec_path: str) -> int:
             # -- end of main path --------------------------------------------
         torch.backends.cudnn.deterministic = False
         DCVGAN.global_batch = global_batch
-        print("CHILD " + json.dumps(rec), flush=True)
+        # one write: ranks share the pipe, and print() may write the text
+        # and its newline apart
+        sys.stdout.write("CHILD " + json.dumps(rec) + "\n")
+        sys.stdout.flush()
     dist.destroy_process_group()
     return 0
 
@@ -2545,10 +2569,12 @@ def torchrun(nproc: int, specs: list, root: Path, label: str, timeout: float = 6
         print(out[-8000:], flush=True)
         raise AssertionError(f"torchrun {label} exited {proc.returncode}")
     records: dict = {}
-    for line in out.splitlines():
-        if line.startswith("CHILD "):
-            rec = json.loads(line[len("CHILD "):])
-            records.setdefault(rec["run"], [None] * nproc)[rec["rank"]] = rec
+    decoder = json.JSONDecoder()
+    # each record as it starts, wherever another rank's output ends up
+    # beside it on the shared pipe
+    for at in (m.end() for m in re.finditer(r"CHILD (?=\{)", out)):
+        rec = decoder.raw_decode(out, at)[0]
+        records.setdefault(rec["run"], [None] * nproc)[rec["rank"]] = rec
     for s in specs:
         if s["name"] not in records or None in records[s["name"]]:
             raise AssertionError(f"torchrun {label}: run {s['name']} printed no record on some rank")
@@ -2958,14 +2984,14 @@ def counting_rounds():
         DCVGAN.sample_videos, DCVGAN.train_step = sample, step
 
 
-def quiet(fn, *args, **kwargs):
-    """``fn``'s result, its standard output printed with a prefix (the
-    tool prints a JSON object a row)."""
+def quiet(fn, *args, label: str = "headtohead tool", **kwargs):
+    """``fn``'s result, its standard output printed with the prefix
+    ``label`` (the tools print a line a row or a step)."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         out = fn(*args, **kwargs)
     for line in buf.getvalue().splitlines():
-        print(f"headtohead tool: {line}", flush=True)
+        print(f"{label}: {line}", flush=True)
     return out
 
 
@@ -3058,9 +3084,154 @@ def phase_headtohead(card: str) -> dict:
           f"in-training eval {json.dumps(summary['in_training_eval'])}; on {card}", flush=True)
     if best["fid"] > H2H_BEST_FID:
         raise AssertionError(f"best FID {best['fid']} above {H2H_BEST_FID:g}: a training-dynamics fault")
-    tmp.cleanup()
+    # phase 15 reads the run directory and the real set, then removes tmp
     return {"dequant_err": dequant_err, "fused_err": fused_err, "dequant_launches": dq,
-            "fused_launches": fused, "scorer_rel": worst}
+            "fused_launches": fused, "scorer_rel": worst, "tmp": tmp, "config": cfg, "real": real,
+            "run_dir": root / "run" / "work" / cfg.log_dir / cfg.experiment_name, "steps": steps}
+
+
+# ------------------------------------------------------------ the tools
+# the port's counterparts of the repository's last three JAX tools
+# (dcvgan_torch.tools.{extractor,multiembed,demo}): (a) the evaluation's
+# extractor trained at the v2 file's widths (assets/MODELCARD-extractor-v2.md:
+# width 32, feature dim 128, batch 32, 16 x 64 x 64, seed 42, a holdout of
+# 512), its depth cut from 2,000 steps to 400 for the run's time; (b) the
+# committed head-to-head sample sets re-scored under the v1 and v2 files and
+# (a)'s, the v1 and v2 rows held to the JAX tool's record; (c) phase 14's run
+# turned into metrics.csv, charts and a sample strip a checkpoint, whose
+# eval-mode cgen forwards (4 videos, N = 64 frames) launch the fused kernel
+EX_STEPS, EX_BATCH, EX_WIDTH, EX_FDIM, EX_SEED, EX_HOLDOUT = 400, 32, 32, 128, 42, 512
+EX_MIN_HOLDOUT = 0.40  # about 10 x chance (1 / 24)
+ME_RECORD = ROOT / "results" / "multiembed_scores_v2.json"
+ME_HELD = ("trained:extractor-synthetic", "trained:extractor-synthetic-v2")
+ME_RTOL = 1e-3  # the port's scorer gave the JAX records to 2.3e-7 (phase 14)
+DEMO_SAMPLES = 4  # the JAX tool's strip: 4 videos in one round
+
+
+def phase_tools(card: str, h2h: dict) -> dict:
+    """The three tools' path (module docstring, phase 15)."""
+    import csv
+    from argparse import Namespace
+
+    from dcvgan_torch.eval.features import FeatureExtractor, load_npz
+    from dcvgan_torch.io.image import read_img
+    from dcvgan_torch.io.video import read_video
+    from dcvgan_torch.ops.dequant import dequantize_video
+    from dcvgan_torch.ops.fused_block import fused_norm_act_conv, plan
+    from dcvgan_torch.tools import demo, extractor, multiembed
+
+    t_phase = time.perf_counter()
+    out = ROOT / "chiprun_out" / "tools"  # this phase's own: an earlier run's files go first
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+
+    # (a) the extractor at v2's widths, through its CLI
+    npz = out / "extractor-phase15.npz"
+    run = quiet(extractor.main, [str(npz), "--steps", str(EX_STEPS), "--batch", str(EX_BATCH), "--width",
+                                 str(EX_WIDTH), "--feature-dim", str(EX_FDIM), "--seed", str(EX_SEED),
+                                 "--holdout", str(EX_HOLDOUT)], label="extractor tool")
+    holdout_acc = run["holdout_acc"]
+    print(f"extractor: {EX_STEPS} steps at batch {EX_BATCH}, width {EX_WIDTH}, feature dim {EX_FDIM}, "
+          f"16x64x64, seed {EX_SEED}: {run['steps_per_s']:.3f} steps/s ({run['seconds']:.2f} s), host "
+          f"render {run['render_ms']:.3f} ms a batch (median), step {run['step_ms']:.3f} ms on the card's "
+          f"stream (median, CUDA events), peak device memory {run['peak_memory_gb']:.3f} GB, holdout "
+          f"{run['holdout_seconds']:.2f} s; last loss {run['last_loss']:.4f}, train accuracy "
+          f"{run['train_acc']:.3f}; holdout accuracy {holdout_acc:.4f} on {EX_HOLDOUT} clips (gate "
+          f"{EX_MIN_HOLDOUT:g}, chance {1 / extractor.NUM_CLASSES:.4f}); on {card}", flush=True)
+    if holdout_acc < EX_MIN_HOLDOUT:
+        raise AssertionError(f"extractor holdout accuracy {holdout_acc} below {EX_MIN_HOLDOUT:g}")
+    meta = extractor.metadata(EX_STEPS, EX_SEED, holdout_acc, EX_HOLDOUT)
+    _, loaded = load_npz(npz)
+    loaded = {k: v if isinstance(v, str) else v.item() for k, v in loaded.items()}
+    ex = FeatureExtractor(weights_path=npz)
+    widths = (ex.model.conv0.out_channels, ex.model.fc.out_features, ex.model.head.out_features)
+    print(f"extractor npz {npz.name}: {ex.fingerprint}, widths {widths}, metadata {json.dumps(loaded)}",
+          flush=True)
+    if loaded != meta or ex.is_c3d or not ex.fingerprint.startswith("small-npz/") or widths != (
+            EX_WIDTH, EX_FDIM, extractor.NUM_CLASSES):
+        raise AssertionError("the saved extractor does not load back as written")
+
+    # (b) the committed sets under v1, v2 and (a)'s file
+    args = Namespace(real=h2h["real"], weights=[ROOT / "assets" / "extractor-synthetic.npz",
+                                                 ROOT / "assets" / "extractor-synthetic-v2.npz", npz],
+                     seeds=[], widths=[], batchsize=32, out=out / "multiembed_scores.json", device=None)
+    t0 = time.perf_counter()
+    scored = quiet(multiembed.score_all, args, label="multiembed tool")
+    me_seconds = time.perf_counter() - t0
+    record = json.loads(ME_RECORD.read_text())
+    worst = 0.0
+    for name in ME_HELD:
+        for got, want in zip(scored["embeddings"][name], record["embeddings"][name], strict=True):
+            if (got["side"], got["run"]) != (want["side"], want["run"]):
+                raise AssertionError(f"{name}: row {got} against the record's {want}")
+            rel = max(abs(got[k] - want[k]) / abs(want[k]) for k in ("is", "fid"))
+            worst = max(worst, rel)
+            if rel > ME_RTOL:
+                raise AssertionError(f"{name} {got['run']}: {got} is {rel:.2e} from the record's {want}")
+    print(f"multiembed: {len(multiembed.MANIFEST)} sets under {len(scored['embeddings'])} "
+          f"embeddings in {me_seconds:.1f} s; v1 and v2 rows within {worst:.2e} relative of "
+          f"{ME_RECORD.name} (limit {ME_RTOL:g}); missing sets {scored['missing_sets']}", flush=True)
+    for name, summ in scored["summary"].items():
+        flags = {k: v for k, v in summ.items() if k.startswith("tpu_no_regression")}
+        print(f"multiembed flags [{name}] ({scored['fingerprints'][name]}): {json.dumps(flags)}; median "
+              f"per-seed final FID reference {summ['reference']['median_per_seed_final_fid']:.1f}, tpu "
+              f"{summ['tpu']['median_per_seed_final_fid']:.1f}", flush=True)
+
+    # (c) the demo on phase 14's run: the fused kernel at its shapes first
+    cfg, run_dir = h2h["config"], h2h["run_dir"]
+    n = DEMO_SAMPLES * cfg.video_length
+    for label, sites in (("ngf 32", cgen_sites(cfg)), ("ngf 64", flagship_sites())):
+        for dtype in (torch.bfloat16, torch.float32):
+            routes = {name: plan(n, h, h, c, cout, dtype).route for name, h, c, cout in sites}
+            print(f"plan N={n} {label} {str(dtype)[6:]}: {json.dumps(routes)}", flush=True)
+    fused_err = check_sites(n, "demo strips", cgen_sites(cfg))
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    demo_out = out / "demo"
+    fused_norm_act_conv.launches = 0
+    fused_norm_act_conv.routes.clear()
+    dequantize_video.launches = 0
+    t0 = time.perf_counter()
+    # -- main path: counts from 0 ------------------------------------------
+    if has_mpl:
+        quiet(demo.main, [str(run_dir), str(demo_out)], label="demo tool")
+    else:
+        demo_out.mkdir(parents=True, exist_ok=True)
+        header, rows = demo.parse_log(run_dir)
+        demo.write_csv(header, rows, demo_out / "metrics.csv")
+        quiet(demo.render_checkpoint_samples, run_dir, demo_out, label="demo tool")
+    torch.cuda.synchronize()
+    fused, routes, dq = fused_norm_act_conv.launches, dict(fused_norm_act_conv.routes), dequantize_video.launches
+    # -- end of main path ----------------------------------------------------
+    demo_seconds = time.perf_counter() - t0
+    with (demo_out / "metrics.csv").open() as f:
+        table = list(csv.reader(f))
+    col = table[0].index("iteration")
+    want_its = list(range(cfg.log_interval, h2h["steps"] + 1, cfg.log_interval))
+    if [int(float(r[col])) for r in table[1:]] != want_its or not {"loss_gen", "fid", "is"} <= set(table[0]):
+        raise AssertionError(f"metrics.csv: columns {table[0]}, {len(table) - 1} rows; expected a row every "
+                             f"{cfg.log_interval} steps to {h2h['steps']}")
+    steps = [cfg.snapshot_interval * (i + 1) for i in range(h2h["steps"] // cfg.snapshot_interval)]
+    strips = sorted(p.name for p in demo_out.glob("samples_step_*.png"))
+    shapes = {read_img(demo_out / s).shape for s in strips}
+    video = read_video(demo_out / "final_samples.mp4")
+    charts = sorted(p.name for p in demo_out.glob("*.png") if not p.name.startswith("samples_step_"))
+    print(f"demo: {len(table) - 1} metric rows, strips {strips} of {sorted(shapes)}, final_samples.mp4 "
+          f"{video.shape} {video.dtype}; charts {charts if has_mpl else 'not drawn: matplotlib absent'}; "
+          f"fused_norm_act_conv launches {fused} by route {json.dumps(routes)} ({5 * len(steps)} expected), "
+          f"dequantize_video {dq}; {demo_seconds:.1f} s", flush=True)
+    if strips != [f"samples_step_{s:06d}.png" for s in steps] or shapes != {(2 * DEMO_SAMPLES * cfg.image_size,
+                                                                              cfg.video_length // 2 * cfg.image_size, 3)}:
+        raise AssertionError(f"expected one strip per checkpoint {steps}")
+    if video.shape != (cfg.video_length, cfg.image_size, DEMO_SAMPLES * cfg.image_size, 3) or video.dtype != np.uint8:
+        raise AssertionError(f"final_samples.mp4 reads back as {video.shape} {video.dtype}")
+    if has_mpl and charts != ["fid.png", "is.png", "losses.png"]:
+        raise AssertionError(f"charts {charts}")
+    if fused != 5 * len(steps) or routes != {"tma": fused} or dq:
+        raise AssertionError("expected 5 fused launches per checkpoint on the tma route and no dequant launch")
+    h2h["tmp"].cleanup()
+    seconds = time.perf_counter() - t_phase
+    print(f"tools phase: {seconds:.1f} s on {card}", flush=True)
+    return {"fused_err": fused_err, "fused_launches": fused, "holdout_acc": holdout_acc, "seconds": seconds}
 
 
 def np_equal(a, b) -> bool:
@@ -3084,7 +3255,7 @@ def main() -> int:
           f"cudnn {torch.backends.cudnn.version()} triton {triton_version}")
     print(sh([build.nvcc_path(), "--version"]).splitlines()[-1])
     found = {m: importlib.util.find_spec(m) is not None
-             for m in ("cv2", "yaml", "scipy", "tensorboardX", "joblib", "face_recognition")}
+             for m in ("cv2", "yaml", "scipy", "tensorboardX", "joblib", "face_recognition", "matplotlib")}
     print("optional packages: " + ", ".join(f"{m} {'found' if ok else 'absent'}" for m, ok in found.items()))
     print(f"card: {card}; torch sees {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     torch.backends.cudnn.allow_tf32 = False
@@ -3127,6 +3298,7 @@ def main() -> int:
     timed = phase_time(run, card, parallel)
     run["tmp"].cleanup()
     h2h = phase_headtohead(card)
+    tools = phase_tools(card, h2h)
     # the fused kernel's launches on the later paths, each counted from 0
     entry["eval_launches"] = evaluation["fused_launches"]
     entry["infer_launches"] = inference["fused_launches"]
@@ -3139,6 +3311,8 @@ def main() -> int:
     dequant_entry["time_sharded_launches"] = timed["dequant_launches"]
     # and on the head-to-head path
     entry["headtohead_launches"] = h2h["fused_launches"]
+    # and on the demo tool's path (phase 15)
+    entry["demo_launches"] = tools["fused_launches"]
     dequant_entry["headtohead_launches"] = h2h["dequant_launches"]
     dequant_entry["max_abs_err"] = max(dequant_entry["max_abs_err"], parallel["dequant_err"],
                                        timed["dequant_err"], h2h["dequant_err"])
@@ -3146,7 +3320,7 @@ def main() -> int:
     entry["max_abs_err"] = max(entry["max_abs_err"], run["fused_err"], levers["fused_err"],
                                *(r["fused_err"] for r in datasets["runs"].values()),
                                evaluation["fused_err"], inference["fused_err"], served["fused_err"],
-                               parallel["fused_err"], timed["fused_err"], h2h["fused_err"])
+                               parallel["fused_err"], timed["fused_err"], h2h["fused_err"], tools["fused_err"])
 
     print(json.dumps({"kernels": [entry, dequant_entry]}))
     print(card_line())

@@ -133,6 +133,22 @@ def _state_dict_from_flax(params: Dict[str, Dict[str, np.ndarray]]) -> Dict[str,
     return sd
 
 
+def _flax_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of :func:`_state_dict_from_flax`: ``(cout, cin, kt, kh,
+    kw)`` -> ``(kt, kh, kw, cin, cout)``, ``(out, in)`` -> ``(in, out)``, as
+    float32 numpy, layers and leaves in sorted order (the flax tree's)."""
+    params: Dict[str, Dict[str, np.ndarray]] = {}
+    for key in sorted(sd):
+        layer, leaf = key.rsplit(".", 1)
+        v = sd[key].detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            params.setdefault(layer, {})["kernel"] = np.ascontiguousarray(
+                v.transpose(2, 3, 4, 1, 0) if v.ndim == 5 else v.T)
+        else:
+            params.setdefault(layer, {})["bias"] = v.copy()
+    return {layer: dict(sorted(leaves.items())) for layer, leaves in params.items()}
+
+
 def load_npz(path: Path) -> Tuple[Dict[str, Dict[str, np.ndarray]], Dict[str, object]]:
     """An extractor npz as (``{layer: {leaf: array}}``, ``{meta name:
     value}``)."""

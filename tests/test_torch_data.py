@@ -17,6 +17,9 @@ from dcvgan_tpu.data.loader import VideoLoader as JaxLoader
 from dcvgan_tpu.data.preprocess import get_preprocessor as jax_preprocessor
 from dcvgan_tpu.io.image import read_img as jax_read_img
 from dcvgan_tpu.utils import video_np as jax_video_np
+from torch_port_util import jax_native_built  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_native_built")
 
 S = 32  # frame size of the synthetic trees here
 

@@ -12,6 +12,9 @@ import pytest
 from dcvgan_torch import native
 from dcvgan_torch.data import host_ops
 from dcvgan_tpu import native as jax_native
+from torch_port_util import jax_native_built  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_native_built")
 
 SHAPES = [(16, 64, 64), (3, 5, 7), (1,), (0, 4)]
 

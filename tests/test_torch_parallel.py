@@ -29,9 +29,9 @@ from dcvgan_tpu.data.loader import VideoLoader as JaxLoader
 from dcvgan_tpu.parallel.mesh import create_mesh
 from torch_dist_util import run_ranks
 from torch_port_util import GLOBAL_B, WORLD, within
-from torch_port_util import one_intra_op_thread  # noqa: F401
+from torch_port_util import jax_native_built, one_intra_op_thread  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
+pytestmark = pytest.mark.usefixtures("jax_native_built", "one_intra_op_thread")
 
 # (world, data, time, dcn, batchsize)
 LAYOUTS = [

@@ -32,6 +32,9 @@ from dcvgan_tpu.data.dataset import VideoDataset as JaxDataset
 from dcvgan_tpu.data.preprocess import get_preprocessor as jax_preprocessor
 from dcvgan_tpu.io import image as jax_image
 from dcvgan_tpu.utils import video_np as jax_video_np
+from torch_port_util import jax_native_built  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_native_built")
 
 T_RAW, H_RAW, W_RAW = 20, 60, 80
 LENGTH, SIZE = 16, 32

@@ -29,9 +29,9 @@ from dcvgan_tpu.data.mock import generate_mock_dataset
 from dcvgan_tpu.logging.logger import Logger as JaxLogger
 from dcvgan_tpu.parallel.mesh import replicate
 from dcvgan_tpu.train.trainer import Trainer as JaxTrainer
-from torch_port_util import jax_trees, one_intra_op_thread  # noqa: F401
+from torch_port_util import jax_native_built, jax_trees, one_intra_op_thread  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
+pytestmark = pytest.mark.usefixtures("jax_native_built", "one_intra_op_thread")
 
 REPO = Path(__file__).resolve().parents[1]
 DEBUG = REPO / "configs" / "debug-mock-depth.yml"

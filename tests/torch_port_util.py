@@ -434,6 +434,31 @@ def run_pair(jcfg, pcfg, seed, batch, step0=0, jgan=None):
     return jgan, jstate, jafter, jmetrics, pgan, pstate, pmetrics
 
 
+@pytest.fixture(scope="session")
+def jax_native_built():
+    """The JAX package's host library (``dcvgan_tpu.native``) loaded before a
+    module's tests reach it, one port test worker at a time. That package
+    compiles ``libdcvgan_host.so`` with ``g++ -o`` straight onto its final
+    path on first use, so a second process that loads it mid-build reads a
+    partial file and falls back to numpy for good. An ``fcntl`` lock on a
+    file in the port's build directory keeps port workers from building it
+    at the same moment; the JAX package still does the writing. A module
+    that reaches the library (directly or through the JAX dataset) opts in
+    with ``pytestmark``."""
+    import fcntl
+
+    from dcvgan_torch.ops.build import BUILD_DIR
+    from dcvgan_tpu import native
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "jax-native.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            return native.available()
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 @pytest.fixture(scope="module")
 def one_intra_op_thread():
     """One intra-op thread for torch while a module's tests run, restored

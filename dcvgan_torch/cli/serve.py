@@ -67,6 +67,14 @@ order. JAX's ``make_chunk_fn(mesh=...)`` says its bytes equal the unsharded
 chunk's bit for bit; here a replica's convolutions run at batch B/N, for
 which cuDNN may pick other algorithms, so a byte may differ by the rounding
 of the last quantisation step (the tests hold that bound).
+
+Spans (``utils/trace.py``, recorded only after ``trace.enable()``): a
+chunk's launch ``serve.chunk.enqueue``, and in ``InFlight`` its
+``serve.chunk.copy_issue`` and ``serve.chunk.wait``; the micro-batcher's
+``serve.batch.idle``, ``.window``, ``.fetch`` and ``.deal`` under the
+round's index; ``serve.request.queue`` from a batched request's arrival to
+the start of its first round's fetch, and the handler's
+``serve.http.write`` (socket writes only), under the request's id.
 """
 
 from __future__ import annotations
@@ -74,6 +82,7 @@ from __future__ import annotations
 import argparse
 import copy
 import io
+import itertools
 import json
 import threading
 import time
@@ -94,6 +103,7 @@ from dcvgan_torch.config import load_config
 from dcvgan_torch.io.video import write_videos_parallel
 from dcvgan_torch.train.step import DCVGAN
 from dcvgan_torch.train.state import GeneratorState
+from dcvgan_torch.utils import trace
 from dcvgan_torch.utils.device import resolve_device
 from dcvgan_torch.utils.video_np import geometric_info_in_color_format
 
@@ -151,7 +161,7 @@ def make_chunk_fn(gan: DCVGAN, batchsize: int, iters: int, mesh: Optional[Sequen
             return tuple(torch.cat([p[j].to(gan.device) for p in parts]) for j in (0, 1))
 
     def chunk_fn(state, gen: torch.Generator):
-        with torch.inference_mode():
+        with trace.span("serve.chunk.enqueue"), torch.inference_mode():
             total = torch.zeros((), dtype=torch.int64, device=gan.device)
             xgs, xcs = [], []
             for i in range(iters):
@@ -185,23 +195,25 @@ class InFlight:
         self._want = (color, geo)
         dev = [csum] + ([xc] if color else []) + ([xg] if geo else [])
         self._dev = dev
-        if copy_stream is None:
-            self._host, self._done = [t.clone() for t in dev], None
-            return
-        ready = torch.cuda.Event()
-        ready.record()
-        with torch.cuda.stream(copy_stream):
-            copy_stream.wait_event(ready)
-            self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in dev]
-            for h, d in zip(self._host, dev):
-                h.copy_(d, non_blocking=True)
-            self._done = torch.cuda.Event()
-            self._done.record(copy_stream)
+        with trace.span("serve.chunk.copy_issue"):
+            if copy_stream is None:
+                self._host, self._done = [t.clone() for t in dev], None
+                return
+            ready = torch.cuda.Event()
+            ready.record()
+            with torch.cuda.stream(copy_stream):
+                copy_stream.wait_event(ready)
+                self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in dev]
+                for h, d in zip(self._host, dev):
+                    h.copy_(d, non_blocking=True)
+                self._done = torch.cuda.Event()
+                self._done.record(copy_stream)
 
     def result(self) -> Tuple[int, Optional[np.ndarray], Optional[np.ndarray]]:
         """``(checksum mod 2**32, xg | None, xc | None)`` on the host."""
-        if self._done is not None:
-            self._done.synchronize()
+        with trace.span("serve.chunk.wait"):
+            if self._done is not None:
+                self._done.synchronize()
         self._dev = None
         host = iter(self._host)
         csum = int(next(host)) % 2**32
@@ -464,15 +476,24 @@ class GenerationServer:
 
 class _PendingRequest:
     """One coalescable request: slices arrive on ``out`` as (geo, color)
-    tuples; ``None`` terminates, an Exception propagates a chunk failure."""
+    tuples; ``None`` terminates, an Exception propagates a chunk failure.
+    ``queued`` is its open ``serve.request.queue`` span until the round
+    dispatched for it starts."""
 
-    __slots__ = ("remaining", "with_geo", "out", "dead")
+    __slots__ = ("remaining", "with_geo", "out", "dead", "id", "queued")
 
-    def __init__(self, n: int, with_geo: bool):
+    def __init__(self, n: int, with_geo: bool, id: int):
         self.remaining = n
         self.with_geo = with_geo
         self.out: SimpleQueue = SimpleQueue()
         self.dead = False  # consumer abandoned (client disconnect)
+        self.id = id
+        self.queued = None
+
+
+# the id of the batched request the calling handler thread answers (None
+# for a seeded one), for its serve.http.write spans
+_request = threading.local()
 
 
 class MicroBatcher:
@@ -498,6 +519,7 @@ class MicroBatcher:
         # a stream of its own, apart from every client-pinned seed's stream
         self._key = prng.named(prng.base_key(seed, server.gan.device), "serve-microbatch")
         self._step = 0
+        self._ids = itertools.count()
         self._thread = threading.Thread(target=self._loop, daemon=True, name="serve-microbatcher")
         self._thread.start()
 
@@ -509,10 +531,12 @@ class MicroBatcher:
 
     def submit(self, n: int, with_geo: bool = False):
         """Yield ``(geo | None, color)`` uint8 slices totalling n videos."""
-        req = _PendingRequest(n, with_geo)
+        req = _PendingRequest(n, with_geo, next(self._ids))
+        _request.id = req.id
         with self._cv:
             if self._closed:
                 raise RuntimeError("server is shutting down")
+            req.queued = trace.begin("serve.request.queue", req.id)
             self._waiting.append(req)
             self._cv.notify_all()
         try:
@@ -539,31 +563,38 @@ class MicroBatcher:
     def _loop(self) -> None:
         capacity = self.server.batchsize * self.server.iters
         while True:
+            k = self._step
             with self._cv:
-                while not self._live() and not self._closed:
-                    self._cv.wait()
+                with trace.span("serve.batch.idle", k):
+                    while not self._live() and not self._closed:
+                        self._cv.wait()
                 if self._closed:
                     for r in self._live():
                         r.out.put(RuntimeError("server is shutting down"))
                     self._waiting.clear()
                     return
                 # coalescing window: let concurrent arrivals join this chunk
-                deadline = time.perf_counter() + self.window_s
-                while sum(r.remaining for r in self._live()) < capacity:
-                    left = deadline - time.perf_counter()
-                    if left <= 0:
-                        break
-                    self._cv.wait(timeout=left)
+                with trace.span("serve.batch.window", k):
+                    deadline = time.perf_counter() + self.window_s
+                    while sum(r.remaining for r in self._live()) < capacity:
+                        left = deadline - time.perf_counter()
+                        if left <= 0:
+                            break
+                        self._cv.wait(timeout=left)
                 live = self._live()
                 if not live:  # every waiter died during the window
                     continue
                 want_geo = live[0].with_geo
-            k = self._step
             self._step += 1
+            for r in live:
+                trace.end(r.queued)
+                r.queued = None
             try:
-                _, xg, xc = self.server._dispatch(prng.for_step(self._key, k), want_geo).result()
-                color = xc.reshape((-1,) + xc.shape[2:])
-                geo = xg.reshape((-1,) + xg.shape[2:]) if want_geo else None
+                with trace.span("serve.batch.fetch", k):
+                    gen = prng.for_step(self._key, k)
+                    _, xg, xc = self.server._dispatch(gen, want_geo).result()
+                    color = xc.reshape((-1,) + xc.shape[2:])
+                    geo = xg.reshape((-1,) + xg.shape[2:]) if want_geo else None
             except Exception as e:
                 # fail only the requests this chunk was dispatched for;
                 # arrivals during it stay queued for the next round
@@ -577,7 +608,7 @@ class MicroBatcher:
                 continue
             self.server.count("batched_chunks")
             off = 0
-            with self._cv:
+            with self._cv, trace.span("serve.batch.deal", k):
                 while off < len(color) and self._waiting:
                     r = self._waiting[0]
                     if r.dead:
@@ -681,6 +712,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._json(429, {"error": "server at max concurrent generate requests"},
                        headers=[("Retry-After", "1")])
             return
+        _request.id = None  # MicroBatcher.submit sets it for a batched request
         try:
             if seed is None:  # server-picked stream: coalescable
                 chunks = self.gen.batcher.submit(n, with_geo)
@@ -713,7 +745,8 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_header("Content-Length", str(len(body)))
         self.send_header("X-Video-Shape", "x".join(map(str, color.shape)))
         self.end_headers()
-        self.wfile.write(body)
+        with trace.span("serve.http.write", _request.id):
+            self.wfile.write(body)
 
     def _stream_npy(self, n: int, chunks) -> None:
         """Stream an npy payload chunk by chunk: the npy header is computed
@@ -738,10 +771,12 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_header("X-Video-Shape", "x".join(map(str, shape)))
         self.end_headers()
         try:
-            self.wfile.write(header)
-            self.wfile.write(np.ascontiguousarray(first[1]).data)
+            with trace.span("serve.http.write", _request.id):
+                self.wfile.write(header)
+                self.wfile.write(np.ascontiguousarray(first[1]).data)
             for _, color in chunks:
-                self.wfile.write(np.ascontiguousarray(color).data)
+                with trace.span("serve.http.write", _request.id):
+                    self.wfile.write(np.ascontiguousarray(color).data)
         except Exception:  # mid-stream failure: the connection dies, the server lives
             self.gen.count("errors")
             self.close_connection = True

@@ -13,6 +13,7 @@ from dcvgan_torch.config import ExperimentConfig
 from dcvgan_torch.train.step import DCVGAN
 from torch_port_util import NGF
 from torch_port_util import one_intra_op_thread  # noqa: F401
+from torch_port_util import tracing  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
@@ -83,6 +84,19 @@ def test_serve_replays_and_checksums_every_pixel(tmp_path):
     assert geo[0].shape == (2, 2, T, 64, 64, 1) and geo[0].dtype == np.uint8
     total = sum(int(x.sum(dtype=np.int64)) for x in color + geo)
     assert total % 2**32 == a["checksum"]
+
+
+def test_serve_records_each_chunks_spans(tracing):
+    """serve() over 3 chunks at queue depth 2: each chunk (and the warm-up
+    chunk) is enqueued, its copy issued, and waited for once, in the loop's
+    order."""
+    gan, state = _gan()
+    serve(gan, state, 2, 2, 3, Sink("null", None, "depth", False), seed=3)
+    recs = tracing.records()
+    launch = ["serve.chunk.enqueue", "serve.chunk.copy_issue"]
+    wait = ["serve.chunk.wait"]
+    assert [r.name for r in recs] == launch + wait + launch + launch + wait + launch + wait + wait
+    assert all(r.start_ns <= r.end_ns and r.parent is None and r.id is None for r in recs)
 
 
 def test_generation_server_replays_an_explicit_seed():

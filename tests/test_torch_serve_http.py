@@ -35,6 +35,7 @@ from dcvgan_tpu.io.video import read_video as jax_read_video
 from dcvgan_tpu.train.step import DCVGAN as JaxDCVGAN
 from torch_port_util import NGF
 from torch_port_util import one_intra_op_thread  # noqa: F401
+from torch_port_util import tracing  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
@@ -198,6 +199,72 @@ def test_seeded_bytes_equal_generate(servers):
     assert headers["Content-Type"] == "application/x-npz"
     np.testing.assert_array_equal(got["color"], color)
     np.testing.assert_array_equal(got["geo"], geo)
+
+
+# unseeded n = 3 (two rounds of a 2-video chunk), unseeded n = 1, seeded,
+# unseeded with geometry: batched requests 0, 1, 2 in rounds 0-1, 2, 3
+EXCHANGE = ["/generate?n=3", "/generate?n=1", "/generate?n=3&seed=5", "/generate?n=2&geo=1"]
+
+
+def _exchange():
+    """The EXCHANGE's replies, one request at a time, from a fresh port
+    server, and its /stats once every request is counted."""
+    _, pgan = _port_gan()
+    gen = port_serve.GenerationServer(pgan, pgan.init_state(0).generators(), **LIMITS)
+    httpd, thread = _listen(port_serve, gen)
+    port = httpd.server_address[1]
+    try:
+        replies = [_send(port, "GET", path) for path in EXCHANGE]
+        deadline = time.monotonic() + 60  # a handler counts after its last byte
+        while gen.counters["requests"] < len(EXCHANGE) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        _, _, stats = _send(port, "GET", "/stats")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+        gen.close()
+    stats = json.loads(stats)
+    stats.pop("uptime_s")
+    return replies, stats
+
+
+def test_tracing_changes_no_reply_and_no_counter(tracing):
+    on = _exchange()
+    tracing.disable()
+    assert on == _exchange()
+    replies, stats = on
+    assert [status for status, _, _ in replies] == [200] * 4
+    assert (stats["requests"], stats["batched_requests"], stats["batched_chunks"]) == (4, 3, 4)
+
+
+def test_a_batched_request_records_its_queue_rounds_and_writes(tracing):
+    _exchange()
+    recs = tracing.records()
+    by = {}
+    for r in recs:
+        by.setdefault(r.name, []).append(r)
+    fetch = {r.id: r for r in by["serve.batch.fetch"]}
+    assert sorted(fetch) == [0, 1, 2, 3]
+    for k in fetch:  # each round's phases, in order
+        window, deal = ([r for r in by[name] if r.id == k] for name in ("serve.batch.window",
+                                                                       "serve.batch.deal"))
+        assert len(window) == len(deal) == 1
+        assert window[0].end_ns <= fetch[k].start_ns <= fetch[k].end_ns <= deal[0].start_ns
+    inside = [r for r in recs if r.parent == "serve.batch.fetch"]
+    assert {r.name for r in inside} == {"serve.chunk.enqueue", "serve.chunk.copy_issue",
+                                        "serve.chunk.wait"}
+    # each batched request's queue span ends where its first round's fetch starts
+    queue = {r.id: r for r in by["serve.request.queue"]}
+    assert sorted(queue) == [0, 1, 2]
+    for rid, first_round in ((0, 0), (1, 2), (2, 3)):
+        q, f = queue[rid], fetch[first_round]
+        assert q.start_ns <= q.end_ns <= f.start_ns
+        assert all(other.start_ns < q.start_ns for k, other in fetch.items() if k < first_round)
+        assert f.start_ns - q.end_ns < 1e9
+    # the writes of its 200 reply under its id; the seeded request's under none
+    writes = [r.id for r in by["serve.http.write"]]
+    assert sorted(writes, key=str) == [0, 0, 1, 2, None, None]
 
 
 class _StampServer:

@@ -589,3 +589,15 @@ def no_persistent_compile_cache():
     yield
     jax.config.update("jax_enable_compilation_cache", was)
     compilation_cache.reset_cache()
+
+
+# ------------------------------------------------------------ span recorder
+@pytest.fixture
+def tracing():
+    """``dcvgan_torch.utils.trace`` recording into an empty ring while the
+    test runs, off again after."""
+    from dcvgan_torch.utils import trace
+
+    trace.enable()
+    yield trace
+    trace.disable()

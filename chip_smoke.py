@@ -19,6 +19,16 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
    the FFMA floor, each route asserted at the flagship sites and at edge
    shapes (slope 0.2 and 0.01 with shift + 1), a train step's two
    ``dequant`` batches in one launch and launched per tensor in turns;
+3b. ``fused_norm_act_up_conv`` (the decoders' fused transposed convs):
+   held to its plain version at the serving path's ten sites at N = 4096
+   and at edge shapes (two launches each, the same bytes), timed at each
+   site beside its bound, the plain version, cuDNN's transposed conv on the
+   materialised activation and the unfused BatchNorm + ReLU + cat + conv
+   chain it replaces ("time up" lines); two chunks of one seed byte for
+   byte. ``python3 chip_smoke.py --fused-up`` runs this phase alone. Its
+   launches are counted by route on the serving path of phase 4 (9 k4s2 +
+   1 k3s1 a sampling round) and on the training run of phase 5 (10 for each
+   ``log_samples`` round, none in the train steps);
 4. the serving path: ``dcvgan_torch.cli.serve``'s ``serve()`` and
    ``GenerationServer.generate`` at the flagship width
    (``configs/mug-depth.yml``: depth, ngf 64, bf16, batch 256, seeded weights),
@@ -518,6 +528,7 @@ def phase_slice(card: str) -> int:
     from dcvgan_torch.config import load_config
     from dcvgan_torch.ops.dequant import dequantize_video
     from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+    from dcvgan_torch.ops.fused_up import fused_norm_act_up_conv
     from dcvgan_torch.train.state import GeneratorState
     from dcvgan_torch.train.step import DCVGAN
 
@@ -555,6 +566,8 @@ def phase_slice(card: str) -> int:
     batch, iters, chunks = 256, 4, 8
     torch.cuda.reset_peak_memory_stats()
     fused_norm_act_conv.launches = 0
+    fused_norm_act_up_conv.launches = 0
+    fused_norm_act_up_conv.routes.clear()
     dequantize_video.launches = 0
     # -- main path: counts from 0 ------------------------------------------
     t0 = time.perf_counter()
@@ -567,6 +580,7 @@ def phase_slice(card: str) -> int:
     server.close()
     torch.cuda.synchronize()
     launches = fused_norm_act_conv.launches
+    up_launches, up_routes = fused_norm_act_up_conv.launches, dict(fused_norm_act_up_conv.routes)
     # -- end of main path ----------------------------------------------------
     slice_s = time.perf_counter() - t0
     # cgen forwards: 1 sample, serve warm-up + chunks, server warm-up + 3 requests of 2
@@ -574,6 +588,12 @@ def phase_slice(card: str) -> int:
     print(f"fused_norm_act_conv launches {launches} for {forwards} cgen forwards", flush=True)
     if launches != 5 * forwards:
         raise AssertionError(f"expected {5 * forwards} launches, counted {launches}")
+    # a sampling round decodes once through ggen (4 k4s2) and once through cgen (5 k4s2 + outconv)
+    print(f"fused_norm_act_up_conv launches {up_launches} by route {json.dumps(up_routes)} for {forwards} "
+          "sampling rounds", flush=True)
+    if up_launches != 10 * forwards or up_routes != {"k4s2": 9 * forwards, "k3s1": forwards}:
+        raise AssertionError(f"expected {10 * forwards} fused_norm_act_up_conv launches "
+                             f"({9 * forwards} k4s2 + {forwards} k3s1), counted {up_launches} {up_routes}")
     if dequantize_video.launches != 0:
         raise AssertionError("the serving path launched dequantize_video")
     for name, v in (("geometry", xg), ("colour", xc)):
@@ -594,8 +614,162 @@ def phase_slice(card: str) -> int:
           f"(checksum {stats['checksum']})", flush=True)
     print("serve " + json.dumps(stats), flush=True)
     phase_profile(gan, state, batch)
-    return launches
+    return launches, {"launches": up_launches, "routes": up_routes, "rounds": forwards}
 
+
+# (label, N, H, W, C_x, C_skip, Cout, route) of fused_norm_act_up_conv at
+# the edges of its plan: Cout 1, 2, 3, no skip, partial chunks, W != H,
+# tiles across images, and persistent CTAs that each walk several units
+UP_EDGE_CASES = [
+    ("Cout 1, no skip, 2x2", 3, 2, 2, 8, 0, 1, "k4s2"),
+    ("Cout 2, skip, W != H", 3, 5, 7, 8, 16, 2, "k4s2"),
+    ("Cout 3, 24 + 8 channels", 2, 6, 5, 24, 8, 3, "k4s2"),
+    ("Cout 40, tiles across images", 40, 6, 10, 64, 64, 40, "k4s2"),
+    ("k3 Cout 3, W != H", 3, 5, 7, 8, 16, 3, "k3s1"),
+    ("k3 Cout 2, a column image", 5, 6, 1, 8, 8, 2, "k3s1"),
+    ("several units a CTA, k4", 512, 4, 4, 512, 0, 256, "k4s2"),
+    ("several four-phase units a CTA", 64, 32, 32, 64, 64, 64, "k4s2"),
+    ("several two-m-block units a CTA, k4", 512, 16, 16, 128, 128, 64, "k4s2"),
+    ("several two-m-block units a CTA, k3", 32, 64, 64, 64, 64, 3, "k3s1"),
+]
+
+
+def decoder_sites(ggen, cgen, image_size: int = 64) -> list:
+    """Every fused_norm_act_up_conv launch of one sampling round, in order:
+    (name, H = W of x, C_x, C_skip, Cout, route)."""
+    convs = [m for m in ggen.main if isinstance(m, torch.nn.ConvTranspose2d)]
+    sites, h = [], 4
+    for i, conv in enumerate(convs[1:], 1):
+        sites.append((f"ggen.up{i}", h, conv.in_channels, 0, conv.out_channels, "k4s2"))
+        h *= 2
+    h = 2
+    for i in range(1, len(cgen.up_blocks)):
+        c1, conv = cgen.up_blocks[i - 1].main[0].out_channels, cgen.up_blocks[i].main[0]
+        sites.append((f"cgen.up{i}", h, c1, conv.in_channels - c1, conv.out_channels, "k4s2"))
+        h *= 2
+    c1 = cgen.up_blocks[-1].main[0].out_channels
+    sites.append(("cgen.outconv", image_size, c1, cgen.outconv.main[0].in_channels - c1, 3, "k3s1"))
+    return sites
+
+
+def up_inputs(n, h, w, c1, c2, cout, route, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cl, k = torch.channels_last, 4 if route == "k4s2" else 3
+    x = torch.randn(n, c1, h, w, generator=g, device="cuda").to(torch.bfloat16).contiguous(memory_format=cl)
+    skip = (torch.randn(n, c2, h, w, generator=g, device="cuda").to(torch.bfloat16).contiguous(memory_format=cl)
+            if c2 else None)
+    wt = torch.randn(c1 + c2, cout, k, k, generator=g, device="cuda") / ((c1 + c2) * 4) ** 0.5
+    wt = wt.to(torch.bfloat16).to(memory_format=cl)
+    scale = torch.rand(c1, generator=g, device="cuda") + 0.5
+    shift = torch.randn(c1, generator=g, device="cuda") * 0.3
+    return x, scale, shift, wt, skip
+
+
+def up_bound(n, h, c1, c2, cout, route):
+    """(bound_ms, bound_by) of one call: x, skip and the weight read once,
+    the output written once; the products of the taps that touch the image
+    at 989 TFLOP/s."""
+    s, k = (2, 4) if route == "k4s2" else (1, 3)
+    live = (4 * h - 2) ** 2 if s == 2 else (3 * h - 2) ** 2  # non-padding taps summed over the outputs
+    flops = 2 * n * (c1 + c2) * cout * live
+    nbytes = 2 * (n * h * h * (c1 + c2) + (c1 + c2) * cout * k * k + n * (s * h) ** 2 * cout) + 8 * c1
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.bfloat16] * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_up(n, h, w, c1, c2, cout, route, label) -> float:
+    """fused_norm_act_up_conv against its plain version; returns max |diff|."""
+    from dcvgan_torch.ops.fused_up import fused_norm_act_up_conv, reference_norm_act_up_conv
+
+    x, scale, shift, wt, skip = up_inputs(n, h, w, c1, c2, cout, route, seed=h * 7 + c1 + cout)
+    stride = 2 if route == "k4s2" else 1
+    got = fused_norm_act_up_conv(x, scale, shift, wt, skip, stride, 1)
+    again = fused_norm_act_up_conv(x, scale, shift, wt, skip, stride, 1)
+    want = reference_norm_act_up_conv(x, scale, shift, wt, skip, stride, 1)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not got.is_contiguous(memory_format=torch.channels_last):
+        raise AssertionError(f"fused_norm_act_up_conv {label}: shape {tuple(got.shape)} or layout off")
+    if not torch.equal(got, again):
+        raise AssertionError(f"fused_norm_act_up_conv {label}: two calls gave other bytes")
+    atol, rtol = OUT_TOL[torch.bfloat16]
+    d = (got.float() - want.float()).abs()
+    bad = d > atol + rtol * want.float().abs()
+    if bad.any():
+        raise AssertionError(f"fused_norm_act_up_conv {label}: {int(bad.sum())} outputs off, "
+                             f"max |diff| {d.max().item():.3e}")
+    print(f"check up {label} N={n} {h}x{w} C={c1}+{c2} Cout={cout} {route}: max|diff| "
+          f"{d.max().item():.3e} (tol {atol:g} + {rtol:g}*|plain|), same bytes twice", flush=True)
+    return d.max().item()
+
+
+def phase_fused_up(card: str) -> dict:
+    """fused_norm_act_up_conv: held to its plain version at the serving
+    path's ten sites at N = 4096 and at edge shapes; timed at each site
+    against the bound, the plain version, cuDNN's conv_transpose2d on the
+    materialised activation and the unfused chain it replaces; two
+    same-seed chunks byte for byte."""
+    import torch.nn.functional as F
+
+    from dcvgan_torch.cli.serve import make_chunk_fn
+    from dcvgan_torch.config import load_config
+    from dcvgan_torch.ops.fused_up import fused_norm_act_up_conv, reference_norm_act_up_conv
+    from dcvgan_torch.train.step import DCVGAN
+
+    cfg = load_config(ROOT / "configs" / f"{FLAGSHIP}.yml")
+    gan = DCVGAN(cfg)
+    state = gan.init_state(cfg.seed)
+    served = state.generators()
+    sites = decoder_sites(served.ggen, served.cgen, cfg.image_size)
+    errs = [check_up(N_FRAMES, h, h, c1, c2, cout, route, name) for name, h, c1, c2, cout, route in sites]
+    errs += [check_up(n, h, w, c1, c2, cout, route, label) for label, n, h, w, c1, c2, cout, route in UP_EDGE_CASES]
+    torch.cuda.empty_cache()
+
+    rows, total = [], {"kernel_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "chain_ms": 0.0, "plain_ms": 0.0}
+    for name, h, c1, c2, cout, route in sites:
+        x, scale, shift, wt, skip = up_inputs(N_FRAMES, h, h, c1, c2, cout, route, seed=3)
+        stride = 2 if route == "k4s2" else 1
+        xn = torch.relu(x.float() * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)).to(x.dtype)
+        xin = torch.cat([xn, skip], 1) if skip is not None else xn
+        bn_mean, bn_var = -shift / scale, torch.ones_like(scale) - 1e-5  # the BatchNorm this affine folds
+
+        def chain():  # the unfused path: BatchNorm, ReLU, cat, cuDNN's transposed conv
+            a = F.relu(F.batch_norm(x, bn_mean, bn_var, scale, torch.zeros_like(scale), False, 0.0, 1e-5))
+            a = torch.cat([a, skip], 1) if skip is not None else a
+            return F.conv_transpose2d(a, wt, stride=stride, padding=1)
+
+        row = {
+            "site": name, "H": h, "C": c1 + c2, "Cout": cout,
+            "kernel_ms": cuda_ms(lambda: fused_norm_act_up_conv(x, scale, shift, wt, skip, stride, 1)),
+            "library_ms": cuda_ms(lambda: F.conv_transpose2d(xin, wt, stride=stride, padding=1)),
+            "chain_ms": cuda_ms(chain),
+            "plain_ms": cuda_ms(lambda: reference_norm_act_up_conv(x, scale, shift, wt, skip, stride, 1), runs=1),
+        }
+        row["bound_ms"], row["bound_by"] = up_bound(N_FRAMES, h, c1, c2, cout, route)
+        row["of_bound"] = row["bound_ms"] / row["kernel_ms"]
+        for k in total:
+            total[k] += row[k]
+        rows.append(row)
+        print("time up " + json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in row.items()}),
+              flush=True)
+        del x, skip, wt, xn, xin
+        torch.cuda.empty_cache()
+    print(f"fused_norm_act_up_conv, ten sites a round at N={N_FRAMES}: kernel {total['kernel_ms']:.3f} ms, "
+          f"bound {total['bound_ms']:.3f} ({total['bound_ms'] / total['kernel_ms']:.1%} of it), cuDNN conv on the "
+          f"materialised input {total['library_ms']:.3f}, unfused chain {total['chain_ms']:.3f}, plain "
+          f"{total['plain_ms']:.3f} ({card})", flush=True)
+
+    # two chunks from one seed: the same bytes
+    chunk_fn = make_chunk_fn(gan, 256, 4)
+    outs = []
+    for _ in range(2):
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        with torch.inference_mode():
+            outs.append([o.cpu() for o in chunk_fn(served, gen)])
+    if not all(torch.equal(a, b_) for a, b_ in zip(*outs)):
+        raise AssertionError("two chunks from one seed differ")
+    print(f"two same-seed chunks (256 x 4 videos): equal byte for byte, checksum {int(outs[0][0])}", flush=True)
+    return {"name": "fused_norm_act_up_conv", "source": "dcvgan_torch/csrc/fused_up.cu", "replaces": None,
+            "max_abs_err": max(errs), "sites": rows, **total}
 
 F32_SERVE_BATCH, F32_SERVE_ITERS, F32_SERVE_CHUNKS = 256, 2, 4
 
@@ -1006,6 +1180,7 @@ def phase_train(card: str):
     from dcvgan_torch.data.loader import VideoLoader
     from dcvgan_torch.ops.dequant import dequantize_video, reference_dequantize
     from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+    from dcvgan_torch.ops.fused_up import fused_norm_act_up_conv
     from dcvgan_torch.train.step import DCVGAN
     from dcvgan_torch.train.trainer import LOSS_NAMES, Trainer
 
@@ -1023,6 +1198,8 @@ def phase_train(card: str):
 
     torch.cuda.reset_peak_memory_stats()
     fused_norm_act_conv.launches = 0
+    fused_norm_act_up_conv.launches = 0
+    fused_norm_act_up_conv.routes.clear()
     dequantize_video.launches = 0
     # -- main path: counts from 0 ------------------------------------------
     t0 = time.perf_counter()
@@ -1030,15 +1207,21 @@ def phase_train(card: str):
     state = trainer.train()
     torch.cuda.synchronize()
     launches, fused = dequantize_video.launches, fused_norm_act_conv.launches
+    up_launches, up_routes = fused_norm_act_up_conv.launches, dict(fused_norm_act_up_conv.routes)
     # -- end of main path ----------------------------------------------------
     train_s = time.perf_counter() - t0
     steps = TRAIN_EPOCHS * (len(dataset) // cfg.batchsize)
     print(f"train: {state.step} steps in {train_s:.1f} s; dequantize_video launches {launches}, "
-          f"fused_norm_act_conv launches {fused}", flush=True)
+          f"fused_norm_act_conv launches {fused}, fused_norm_act_up_conv launches {up_launches} by route "
+          f"{json.dumps(up_routes)}", flush=True)
     if state.step != steps or launches != steps:  # one launch a step for colour + depth
         raise AssertionError(f"expected {steps} steps and {steps} dequant launches")
     if fused != 5 * 2:  # log_samples at step 0 and at the end, one cgen forward each
         raise AssertionError(f"expected 10 fused launches from log_samples, counted {fused}")
+    # the same two log_samples rounds, 10 up-conv launches each; none in the train steps
+    if up_launches != 10 * 2 or up_routes != {"k4s2": 9 * 2, "k3s1": 2}:
+        raise AssertionError(f"expected 20 fused_norm_act_up_conv launches from log_samples (18 k4s2 + 2 k3s1), "
+                             f"counted {up_launches} {up_routes}")
     if next(state.cgen.parameters()).dtype != torch.float32:
         raise AssertionError("training parameters are not float32")
     losses = {k: logger.seen[k] for k in LOSS_NAMES}
@@ -1102,8 +1285,8 @@ def phase_train(card: str):
                          "train profile", {"batch": cfg.batchsize},
                          {"dequantize_video": dequantize_video, "fused_norm_act_conv": fused_norm_act_conv})
     profiled_train(cfg, dataset)
-    out = {"launches": launches, "device_ms": None, "trainer": trainer, "dataset": dataset,
-           "logger": logger, "tmp": tmp, "fused_err": fused_err}
+    out = {"launches": launches, "up_launches": {"launches": up_launches, "routes": up_routes}, "device_ms": None,
+           "trainer": trainer, "dataset": dataset, "logger": logger, "tmp": tmp, "fused_err": fused_err}
     if not kinds:
         return out  # not measured
     dq_ms = kinds["by_kind_ms"]["dequantize_video"]
@@ -3267,9 +3450,14 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s ({json.dumps({k: round(v, 1) for k, v in built.items()})})",
           flush=True)
 
+    if sys.argv[1:2] == ["--fused-up"]:  # that phase alone
+        print(json.dumps({"fused_up": phase_fused_up(card)}))
+        return 0
     entry = phase_kernels()
+    up_entry = phase_fused_up(card)
     dequant_entry = phase_dequant()
-    entry["launches"] = phase_slice(card)
+    # each kernel's launches on the serving main path, counted from 0
+    entry["launches"], up_entry["serve_launches"] = phase_slice(card)
     f32_serve = phase_serve_f32(card)
     # the f32 serving run's launches, counted from 0, all on the tf32x3 route
     entry["f32_serve_launches"] = f32_serve["launches"]
@@ -3277,6 +3465,7 @@ def main() -> int:
     run = phase_train(card)
     levers = phase_levers(run, card)
     dequant_entry["launches"] = run["launches"]
+    up_entry["train_launches"] = run["up_launches"]
     # each kernel's launches on the lever paths, counted from 0 per config
     dequant_entry["lever_launches"] = levers["dequant_launches"]
     entry["lever_launches"] = levers["fused_launches"]
@@ -3322,7 +3511,7 @@ def main() -> int:
                                evaluation["fused_err"], inference["fused_err"], served["fused_err"],
                                parallel["fused_err"], timed["fused_err"], h2h["fused_err"], tools["fused_err"])
 
-    print(json.dumps({"kernels": [entry, dequant_entry]}))
+    print(json.dumps({"kernels": [entry, dequant_entry, up_entry]}))
     print(card_line())
     print(json.dumps({
         "ok": True,

@@ -15,6 +15,17 @@ is block i-1's conv output; the activation the kernel feeds its product is
 written once to ``xn_out`` and kept as the skip ``hs[i]``. Only down0's conv
 and the last block's BatchNorm + LeakyReLU (at 1x1) run as plain ops.
 
+In eval mode in bfloat16 on CUDA the up path runs on
+:func:`fused_norm_act_up_conv` (``_up_fused``): up block i (i >= 1) is
+``fused_norm_act_up_conv(raw_{i-1}, fold(bn_{i-1}), w_i, skip=hs[n - i])``,
+which applies block i-1's BatchNorm + ReLU to its raw conv output as it
+loads it and takes the skip as the rest of its input channels, so no
+BatchNorm, ReLU or concatenation runs as an op of its own; the outconv takes
+raw up5 and ``hs[0]`` the same way (k3 s1 p1), and tanh follows it. Up0's
+conv (on the 1x1 bottleneck with the latent, ngf*4 + dim_z channels) stays
+on cuDNN and writes raw. Float32, CPU, train-mode and GroupNorm forwards
+keep the unfused up path.
+
 Train mode (``train=True``) uses batch statistics, which depend on the conv
 output, so the down path runs unfused, as in the JAX package, whose kernel
 has no backward. The first two up blocks drop whole channels per frame with
@@ -49,6 +60,7 @@ import torch.nn.functional as F
 from dcvgan_torch.models.layers import (
     Conv2d,
     ConvTranspose2d,
+    decodes_fused,
     fold_batch_norm,
     fold_time,
     init_weights_,
@@ -59,6 +71,7 @@ from dcvgan_torch.models.layers import (
     up_conv,
 )
 from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+from dcvgan_torch.ops.fused_up import fused_norm_act_up_conv
 
 
 class _Block(nn.Module):
@@ -175,6 +188,8 @@ class ColorVideoGenerator(nn.Module):
 
         n = len(self.down_blocks)
         h = torch.cat([h, z.to(dtype).reshape(z.shape[0], -1, 1, 1)], dim=1)
+        if decodes_fused(h, train, self.norm):
+            return self._up_fused(h, hs)
         for i, blk in enumerate(self.up_blocks):
             if i > 0:
                 h = torch.cat([h, hs[n - i]], dim=1)
@@ -201,6 +216,20 @@ class ColorVideoGenerator(nn.Module):
         h = leaky_relu(last[1](raw), 0.2)
         hs.append(h)
         return h
+
+    def _up_fused(self, h: torch.Tensor, hs: List[torch.Tensor]) -> torch.Tensor:
+        """The eval-mode up path and outconv on the fused transposed conv,
+        from the bottleneck ``h`` (with the latent) and the skips ``hs``."""
+        dtype, n = h.dtype, len(self.down_blocks)
+        raw = self.up_blocks[0].main[0](h).contiguous(memory_format=torch.channels_last)
+        for i in range(1, len(self.up_blocks)):
+            scale, shift = fold_batch_norm(self.up_blocks[i - 1].main[1])
+            w = self.up_blocks[i].main[0].weight.to(dtype)
+            raw = fused_norm_act_up_conv(raw, scale, shift, w, hs[n - i])
+        scale, shift = fold_batch_norm(self.up_blocks[-1].main[1])
+        w = self.outconv.main[0].weight.to(dtype)
+        raw = fused_norm_act_up_conv(raw, scale, shift, w, hs[0], stride=1, padding=1)
+        return self.outconv.main[1](raw)
 
     def forward_videos(
         self,

@@ -13,6 +13,14 @@ channels for segmentation.
 (``models/layers.py``). ``norm="group"`` (``trainer.norm``) puts a
 :class:`ChannelGroupNorm` in each BatchNorm's slot; it ignores both.
 
+In eval mode in bfloat16 on CUDA under BatchNorm the decoder runs on
+:func:`fused_norm_act_up_conv` (``_decode_fused``): the first conv (k4 s1
+p0 on 1x1) stays on cuDNN and writes its raw output, and each strided stage
+applies the previous stage's BatchNorm (folded into a per-channel affine)
+and ReLU as it loads its input, so no BatchNorm or ReLU runs as an op of its
+own; the head follows the last stage. Float32, CPU, train-mode and
+GroupNorm forwards run the modules in order.
+
 The state-dict naming is the reference's: ``recurrent.*`` (an
 ``nn.GRUCell``'s four tensors) and ``main.{3i}`` / ``main.{3i+1}`` for the
 i-th transposed conv and its BatchNorm, ``main.{3n}`` for the last conv.
@@ -28,6 +36,8 @@ import torch.nn as nn
 from dcvgan_torch.models.layers import (
     ConvTranspose2d,
     Norm,
+    decodes_fused,
+    fold_batch_norm,
     fold_time,
     init_weights_,
     norm_layer,
@@ -35,6 +45,7 @@ from dcvgan_torch.models.layers import (
     unfold_time,
     up_conv,
 )
+from dcvgan_torch.ops.fused_up import fused_norm_act_up_conv
 
 
 class GRUCell(nn.Module):
@@ -143,6 +154,7 @@ class GeometricVideoGenerator(nn.Module):
         self.image_size = image_size
         self.recurrent = GRUCell(dim_z_motion, dim_z_motion)
         self.compute_dtype = torch.float32
+        self.norm = norm
 
         n_up = int(math.log2(image_size // 4))  # strided stages after 4x4
         # dim_z -> 8*ngf at 4x4 (ConvTranspose k4 s1 p0 on 1x1), then one
@@ -198,12 +210,25 @@ class GeometricVideoGenerator(nn.Module):
         ``(N, image_size, image_size, channel)``."""
         x = z.to(self.compute_dtype).reshape(z.shape[0], -1, 1, 1)
         x = x.contiguous(memory_format=torch.channels_last)
+        if decodes_fused(x, train, self.norm):
+            return self._decode_fused(x).permute(0, 2, 3, 1)
         for layer in self.main:
             if isinstance(layer, Norm):
                 x = layer(x, train, update_stats)
             else:
                 x = layer(x)
         return x.permute(0, 2, 3, 1)
+
+    def _decode_fused(self, x: torch.Tensor) -> torch.Tensor:
+        """The eval-mode decoder on the fused transposed conv: latents
+        ``(N, dim_z, 1, 1)`` to the head's output ``(N, channel, H, W)``."""
+        convs = [m for m in self.main if isinstance(m, nn.ConvTranspose2d)]
+        norms = [m for m in self.main if isinstance(m, Norm)]
+        raw = convs[0](x).contiguous(memory_format=torch.channels_last)
+        for conv, norm in zip(convs[1:], norms):
+            scale, shift = fold_batch_norm(norm)
+            raw = fused_norm_act_up_conv(raw, scale, shift, conv.weight.to(x.dtype))
+        return self.main[-1](raw)
 
     def forward(
         self,

@@ -297,6 +297,15 @@ def fold_batch_norm(bn: nn.BatchNorm2d) -> tuple[torch.Tensor, torch.Tensor]:
     return scale, shift
 
 
+def decodes_fused(x: torch.Tensor, train: bool, norm: str) -> bool:
+    """Whether a generator's decoder runs on the fused transposed conv
+    (``ops.fused_up.fused_norm_act_up_conv``) for input ``x``: eval mode
+    under BatchNorm (a per-channel affine, :func:`fold_batch_norm`),
+    bfloat16, on CUDA. Train mode (batch statistics), ``norm: group`` (per
+    sample), float32 and the CPU keep the unfused modules."""
+    return not train and norm == "batch" and x.dtype == torch.bfloat16 and x.is_cuda
+
+
 class RowsOfBatch(NamedTuple):
     """Draws of a batch of ``total`` rows from ``generator``, of which this
     rank keeps ``rows``: a rank's share of a global batch's draw."""

@@ -1,0 +1,457 @@
+"""The fused decoder stage (``dcvgan_torch.ops.fused_up``): BatchNorm-affine +
+ReLU, the U-Net skip and a transposed conv in one op.
+
+On the CPU ``fused_norm_act_up_conv`` runs its plain version. These cases
+hold it, and an emulation of the kernel's GEMM (the packed weight and the
+per-phase taps the CUDA source uses), against ``F.conv_transpose2d`` on the
+materialised ``cat([relu(x * scale + shift), skip])``; check the planner's
+tile tables as pure Python; and hold the generators' eval-mode decode on the
+fused op against their unfused modules. The CUDA kernel itself is held
+against the plain version on the card (``gpu`` marker, and
+``chip_smoke.py``).
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from dcvgan_torch.models import cgen as cgen_mod
+from dcvgan_torch.models import ggen as ggen_mod
+from dcvgan_torch.models.cgen import ColorVideoGenerator
+from dcvgan_torch.models.ggen import GeometricVideoGenerator
+from dcvgan_torch.models import layers
+from dcvgan_torch.models.layers import cast_for_compute
+from dcvgan_torch.ops import fused_up as up
+
+# The serving path's ten sites at mug-depth width (ngf 64): (H of x, C_x,
+# C_skip, Cout, route). ggen's four k4 s2 stages, cgen's up1-up5 and outconv.
+SERVING_SITES = [
+    (4, 512, 0, 256, "k4s2"),
+    (8, 256, 0, 128, "k4s2"),
+    (16, 128, 0, 64, "k4s2"),
+    (32, 64, 0, 1, "k4s2"),
+    (2, 256, 256, 256, "k4s2"),
+    (4, 256, 256, 256, "k4s2"),
+    (8, 256, 256, 128, "k4s2"),
+    (16, 128, 128, 64, "k4s2"),
+    (32, 64, 64, 64, "k4s2"),
+    (64, 64, 64, 3, "k3s1"),
+]
+# other shapes: Cout 1, 2, 3, no skip, channel runs that are not whole
+# 64-channel chunks, W != H, images smaller than a tile's rows, borders
+EDGE_SITES = [
+    (2, 8, 0, 1, "k4s2", 3, 2),
+    (5, 8, 16, 2, "k4s2", 3, 7),
+    (6, 24, 8, 3, "k4s2", 2, 5),
+    (3, 16, 0, 40, "k4s2", 4, 3),
+    (6, 16, 8, 3, "k3s1", 2, 5),
+    (1, 8, 8, 2, "k3s1", 5, 1),
+]
+KERNEL = {"k4s2": (4, 2, 1), "k3s1": (3, 1, 1)}
+
+
+def _taps(route):
+    """Per output phase (py, px) (one for k3s1), the (dy, dx, weight tap
+    kh * k + kw) it sums: output pixel (S*a + py, S*b + px) takes input
+    (a + dy, b + dx) times that tap. The sub-pixel form of a k4 s2 p1
+    transposed conv, and k3 s1 p1 as a conv with the flipped kernel."""
+    if route == "k4s2":
+        return [[(py - i, px - j, (2 * i + 1 - py) * 4 + (2 * j + 1 - px)) for i in range(2) for j in range(2)]
+                for py in range(2) for px in range(2)]
+    return [[(t // 3 - 1, t % 3 - 1, 8 - t) for t in range(9)]]
+
+
+def _case(n, h, w, c1, c2, cout, route, seed=0, dtype=torch.float32):
+    k = KERNEL[route][0]
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, c1, h, w, generator=g)
+    skip = torch.randn(n, c2, h, w, generator=g) if c2 else None
+    wt = torch.randn(c1 + c2, cout, k, k, generator=g) * 0.1
+    scale = torch.rand(c1, generator=g) + 0.5
+    shift = torch.randn(c1, generator=g) * 0.5
+    cl = torch.channels_last
+    return (x.to(dtype).contiguous(memory_format=cl), scale, shift, wt.to(dtype),
+            None if skip is None else skip.to(dtype).contiguous(memory_format=cl))
+
+
+def _materialised(x, scale, shift, w, skip, route):
+    """``F.conv_transpose2d`` in float64 on the materialised activation."""
+    _, stride, padding = KERNEL[route]
+    xn = torch.relu(x.float() * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)).to(x.dtype)
+    if skip is not None:
+        xn = torch.cat([xn, skip], 1)
+    return F.conv_transpose2d(xn.double(), w.double(), stride=stride, padding=padding)
+
+
+def _emulated(x, scale, shift, w, skip, route):
+    """The kernel's arithmetic in float64: the activation, then per output
+    phase and tap a GEMM of the shifted input with the packed weight's rows."""
+    n, c1, h, wd = x.shape
+    xn = torch.relu(x.float() * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)).to(x.dtype)
+    g = up.pack_weight(w, c1).double()  # (Cout, taps, K)
+    off = up.CHUNK * -(-c1 // up.CHUNK)
+    k_in = torch.zeros(n, g.shape[2], h + 2, wd + 2, dtype=torch.float64)  # zero border: the padding
+    k_in[:, :c1, 1:-1, 1:-1] = xn.double()
+    if skip is not None:
+        k_in[:, off:off + skip.shape[1], 1:-1, 1:-1] = skip.double()
+    s = 2 if route == "k4s2" else 1
+    out = torch.zeros(n, w.shape[1], s * h, s * wd, dtype=torch.float64)
+    for phase, taps in enumerate(_taps(route)):
+        py, px = divmod(phase, 2) if s == 2 else (0, 0)
+        for dy, dx, wtap in taps:
+            shifted = k_in[:, :, 1 + dy:1 + dy + h, 1 + dx:1 + dx + wd]
+            out[:, :, py::s, px::s] += torch.einsum("nkhw,ok->nohw", shifted, g[:, wtap])
+    return out
+
+
+@pytest.mark.parametrize("site", SERVING_SITES, ids=[f"{s[4]}-h{s[0]}-{s[1]}+{s[2]}-{s[3]}" for s in SERVING_SITES])
+def test_emulated_kernel_matches_the_materialised_conv_at_the_serving_sites(site):
+    h, c1, c2, cout, route = site
+    n = 2 if h <= 32 else 1
+    x, scale, shift, w, skip = _case(n, h, h, c1, c2, cout, route, seed=h)
+    want = _materialised(x, scale, shift, w, skip, route)
+    got = _emulated(x, scale, shift, w, skip, route)
+    torch.testing.assert_close(got, want, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("site", EDGE_SITES, ids=[f"{s[4]}-h{s[0]}w{s[6]}-{s[1]}+{s[2]}-{s[3]}" for s in EDGE_SITES])
+def test_emulated_kernel_matches_the_materialised_conv_at_edge_shapes(site):
+    h, c1, c2, cout, route, n, w = site
+    x, scale, shift, wt, skip = _case(n, h, w, c1, c2, cout, route, seed=c1 + cout)
+    torch.testing.assert_close(_emulated(x, scale, shift, wt, skip, route),
+                               _materialised(x, scale, shift, wt, skip, route), rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("site", SERVING_SITES, ids=[f"{s[4]}-h{s[0]}-{s[1]}+{s[2]}-{s[3]}" for s in SERVING_SITES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_op_is_the_plain_version_and_counts_no_launch(site, dtype):
+    h, c1, c2, cout, route = site
+    x, scale, shift, w, skip = _case(1, h, h, c1, c2, cout, route, seed=1, dtype=dtype)
+    _, stride, padding = KERNEL[route]
+    before = up.fused_norm_act_up_conv.launches
+    got = up.fused_norm_act_up_conv(x, scale, shift, w, skip, stride, padding)
+    assert up.fused_norm_act_up_conv.launches == before
+    assert got.is_contiguous(memory_format=torch.channels_last) and got.dtype == dtype
+    assert got.shape == (1, cout, stride * h, stride * h)
+    want = up.reference_norm_act_up_conv(x, scale, shift, w, skip, stride, padding)
+    torch.testing.assert_close(got, want)  # two calls of one conv: the CPU's need not agree to the bit
+    # the materialised transposed conv in float64, rounded once to the dtype:
+    # f32 sums in another order (K up to 2,048 products) or, in bf16, one
+    # rounding step apart
+    atol, rtol = (1e-4, 1e-5) if dtype == torch.float32 else (1e-3, 2.0**-7)
+    torch.testing.assert_close(got.double(), _materialised(x, scale, shift, w, skip, route).to(dtype).double(),
+                               atol=atol, rtol=rtol)
+
+
+def test_relu_prologue_zero_pads_the_activation_not_relu_of_shift():
+    # with a positive shift relu(shift) > 0; padded taps must still read 0
+    x, scale, shift, w, skip = _case(2, 4, 4, 8, 8, 3, "k4s2", seed=9)
+    shift = shift.abs() + 1.0
+    got = up.fused_norm_act_up_conv(x, scale, shift, w, skip)
+    torch.testing.assert_close(got.double(), _emulated(x, scale, shift, w, skip, "k4s2"), rtol=1e-5, atol=1e-5)
+
+
+def test_rejects_what_the_kernel_does_not_take():
+    x, scale, shift, w, skip = _case(1, 4, 4, 8, 8, 2, "k4s2")
+    with pytest.raises(ValueError, match="k4 s2 p1 or k3 s1 p1"):
+        up.fused_norm_act_up_conv(x, scale, shift, w, skip, stride=1)
+    with pytest.raises(ValueError, match="w must be"):
+        up.fused_norm_act_up_conv(x, scale, shift, w[:8], skip)
+    with pytest.raises(ValueError, match="channels_last"):
+        up.fused_norm_act_up_conv(x.contiguous(), scale, shift, w, skip)
+    with pytest.raises(ValueError, match="scale"):
+        up.fused_norm_act_up_conv(x, scale.double(), shift, w, skip)
+    with pytest.raises(ValueError, match="skip must be"):
+        up.fused_norm_act_up_conv(x, scale, shift, w, skip[:, :, :2])
+    with pytest.raises(ValueError, match="multiples of 8"):
+        up.plan(2, 4, 4, 12, 0, 8)
+    with pytest.raises(ValueError, match="TMA box"):
+        up.plan(1, 2, 300, 8, 0, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        up.plan(2, 4, 4, 8, 0, 8, aligned=False)
+
+
+# ---- the planner (ops/fused_up.py: plan, tile_table), as pure Python
+
+SCHEDULE_CASES = [(3, h, h, c1, c2, co, r) for h, c1, c2, co, r in SERVING_SITES] + [
+    (300, 2, 2, 256, 256, 256, "k4s2"),
+    (5, 4, 12, 64, 0, 64, "k4s2"),
+    (7, 6, 6, 8, 0, 3, "k4s2"),
+    (40, 6, 10, 64, 64, 64, "k4s2"),
+    (3, 5, 7, 8, 16, 2, "k3s1"),
+]
+
+
+def _reads(n, h, w, route):
+    """Per input position: the lowest and highest flattened input row its
+    valid taps read, over every phase."""
+    img, a, b = (t.ravel() for t in np.meshgrid(np.arange(n), np.arange(h), np.arange(w), indexing="ij"))
+    lo, hi = img * h + a, img * h + a
+    for taps in _taps(route):
+        for dy, dx, _ in taps:
+            ok = (a + dy >= 0) & (a + dy < h) & (b + dx >= 0) & (b + dx < w)
+            row = img * h + a + dy
+            lo = np.where(ok, np.minimum(lo, row), lo)
+            hi = np.where(ok, np.maximum(hi, row), hi)
+    return lo, hi
+
+
+@pytest.mark.parametrize("n,h,w,c1,c2,cout,route", SCHEDULE_CASES)
+def test_tile_table_covers_every_output_once_and_stages_every_row_read(n, h, w, c1, c2, cout, route):
+    p = up.plan(n, h, w, c1, c2, cout, route)
+    phases, groups = up.PHASES[route], up.PHASES[route] // p.phases
+    tile_m = up.TILE_M * p.mblocks
+    t = up.tile_table(n, h, w, p.bn, cout, groups, tile_m).numpy().astype(np.int64)
+    assert t.shape == (p.units, len(up.TILE_COLUMNS)) and p.units == p.m_tiles * groups * -(-cout // p.bn)
+    cols = dict(zip(up.TILE_COLUMNS, t.T))
+    m = n * h * w
+    nt = -(-cout // p.bn)
+    covered = np.zeros((m, phases, nt * p.bn), np.int32)
+    lo, hi = _reads(n, h, w, route)
+    for m0, m1, n0, p_lo, group in zip(*(cols[c] for c in up.TILE_COLUMNS)):
+        assert 0 <= m0 < m1 <= min(m0 + tile_m, m) and n0 % p.bn == 0 and 0 <= group < groups
+        # a one-phase unit computes its group's phase, a four-phase unit all four
+        for ph in ([group] if p.phases == 1 else range(phases)):
+            covered[m0:m1, ph, n0:n0 + p.bn] += 1
+        # every row a position of the tile reads lies in the staged box
+        assert lo[m0:m1].min() >= p_lo and hi[m0:m1].max() < p_lo + p.region_rows
+    np.testing.assert_array_equal(covered, 1)
+    # a tile's units are neighbours in the walk
+    np.testing.assert_array_equal(cols["m0"], np.repeat(np.arange(p.m_tiles) * tile_m, groups * nt))
+    assert 1 <= p.grid <= min(p.units, up.H100_SMS)
+
+
+def _sites(ggen, cgen, image_size=64):
+    """Every fused launch of one sampling round: (H, C_x, C_skip, Cout, route)."""
+    convs = [m for m in ggen.main if isinstance(m, torch.nn.ConvTranspose2d)]
+    sites, h = [], 4
+    for conv in convs[1:]:
+        sites.append((h, conv.in_channels, 0, conv.out_channels, "k4s2"))
+        h *= 2
+    h = 2
+    for i in range(1, len(cgen.up_blocks)):
+        c1 = cgen.up_blocks[i - 1].main[0].out_channels
+        conv = cgen.up_blocks[i].main[0]
+        sites.append((h, c1, conv.in_channels - c1, conv.out_channels, "k4s2"))
+        h *= 2
+    c1 = cgen.up_blocks[-1].main[0].out_channels
+    sites.append((image_size, c1, cgen.outconv.main[0].in_channels - c1, 3, "k3s1"))
+    return sites
+
+
+@pytest.mark.parametrize("geometric_info,channel", [("depth", 1), ("optical-flow", 2), ("segmentation", 5)])
+@pytest.mark.parametrize("ngf", [8, 32, 64, 96])
+def test_plan_takes_every_site_of_every_width_in_shared_memory(ngf, geometric_info, channel):
+    ggen = GeometricVideoGenerator(channel=channel, geometric_info=geometric_info, ngf=ngf)
+    cgen = ColorVideoGenerator(in_ch=channel, geometric_info=geometric_info, ngf=ngf)
+    sites = _sites(ggen, cgen)
+    assert len(sites) == 10
+    for n in (16, 320, 4096):
+        for h, c1, c2, cout, route in sites:
+            p = up.plan(n, h, h, c1, c2, cout, route)
+            assert p.smem <= up.SMEM_LIMIT and up.MIN_REGION_STAGES <= p.region_stages <= up.MAX_REGION_STAGES
+            assert p.resident or up.MIN_W_STAGES <= p.w_stages <= up.MAX_W_STAGES
+            assert p.region_rows <= 256 and p.bn in (16, 32, 64, 128)
+
+
+@pytest.mark.parametrize("n,h,w,c1,c2,cout,route", SCHEDULE_CASES + [(4096, h, h, c1, c2, co, r) for h, c1, c2, co, r in SERVING_SITES])
+def test_resident_plans_keep_each_cta_on_one_phase_and_cout_tile(n, h, w, c1, c2, cout, route):
+    p = up.plan(n, h, w, c1, c2, cout, route)
+    if not p.resident:
+        assert p.region_stages == up.MIN_REGION_STAGES and p.w_stages >= up.MIN_W_STAGES
+        return
+    chunks = -(-c1 // up.CHUNK) + -(-c2 // up.CHUNK)
+    # a unit's whole weights: one stage a chunk and (phase, tap)
+    assert p.w_stages == chunks * p.phases * len(_taps(route)[0])
+    t = up.tile_table(n, h, w, p.bn, cout, up.PHASES[route] // p.phases, up.TILE_M * p.mblocks).numpy()
+    for b in range(p.grid):  # CTA b walks units b, b + grid, ...: one phase and Cout tile
+        assert len({(int(r[2]), int(r[4])) for r in t[b::p.grid]}) == 1
+
+
+def test_flagship_plans_keep_the_small_k_sites_weights_resident():
+    plans = {(h, c1 + c2): up.plan(4096, h, h, c1, c2, co, r) for h, c1, c2, co, r in SERVING_SITES}
+    # K = 512 at 128 output channels a tile: 512 KB a phase, streamed
+    assert not any(p.resident for (h, k), p in plans.items() if k == 512)
+    assert all(p.resident for (h, k), p in plans.items() if k <= 256 and h >= 16)
+    # all four phases a unit where four phases' weights fit: ggen's 16 and 32 px stages, cgen's up5
+    assert [k for k, p in plans.items() if p.phases == 4] == [(16, 128), (32, 64), (32, 128)]
+    # two m-blocks where one tile of at most 64 channels covers Cout: cgen's up4 and outconv
+    assert [k for k, p in plans.items() if p.mblocks == 2] == [(16, 256), (64, 128)]
+    assert all(p.phases * p.mblocks * p.bn <= 128 for p in plans.values())
+
+
+def test_plan_splits_cout_for_small_grids_and_pads_small_cout_to_16():
+    assert up.plan(4096, 4, 4, 512, 0, 256).bn == 128
+    assert up.plan(4096, 64, 64, 64, 64, 3, "k3s1").bn == 16
+    assert up.plan(4096, 32, 32, 64, 0, 1).bn == 16
+    small = up.plan(2, 2, 2, 256, 256, 256)  # 1 M tile x 4 phases: split to cover half the card
+    assert small.bn == 16 and small.units == 4 * 16 and small.phases == 1
+
+
+# ---- the generators' eval-mode decode on the fused op (the CPU runs its plain version)
+
+
+@pytest.fixture
+def fused_on_cpu(monkeypatch):
+    """The decoders' choice with a CPU tensor taken as on CUDA while
+    ``.on`` (the plain version runs); ``.calls`` the fused op's calls."""
+    state = types.SimpleNamespace(on=True, calls=[])
+
+    def decodes_fused(x, train, norm):
+        return layers.decodes_fused(types.SimpleNamespace(dtype=x.dtype, is_cuda=state.on), train, norm)
+
+    def counted(*args, **kwargs):
+        state.calls.append(args[0].shape)
+        return up.fused_norm_act_up_conv(*args, **kwargs)
+
+    for mod in (cgen_mod, ggen_mod):
+        monkeypatch.setattr(mod, "decodes_fused", decodes_fused)
+        monkeypatch.setattr(mod, "fused_norm_act_up_conv", counted)
+    return state
+
+
+def _redrawn(module, seed):
+    """``module`` with seeded weights and running statistics away from (0, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    module.reset_parameters(g)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(torch.randn(m.num_features, generator=g) * 0.3)
+                m.running_var.copy_(torch.rand(m.num_features, generator=g) + 0.5)
+                m.bias.copy_(torch.randn(m.num_features, generator=g) * 0.2)
+    return module
+
+
+GEOMETRY = [("depth", 1), ("optical-flow", 2), ("segmentation", 5)]
+# bf16, fused against unfused: the fused prologue computes relu(x * scale +
+# shift) in f32 and rounds once, where the modules round BatchNorm's output
+# and ReLU takes that; a one-ulp difference in an activation passes through
+# the later stages. Measured max |diff| over seeds 0-3 and the three
+# geometries: ggen 0, cgen 4.9e-4 (outputs in [-1, 1] after tanh); held at
+# one bf16 ulp of 1.0 (2^-8).
+BF16_ATOL = 2.0**-8
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("geometric_info,channel", GEOMETRY)
+def test_ggen_eval_decode_on_the_fused_op_matches_the_modules(fused_on_cpu, geometric_info, channel, seed):
+    ggen = _redrawn(GeometricVideoGenerator(channel=channel, geometric_info=geometric_info, ngf=8), seed)
+    cast_for_compute(ggen, torch.device("cpu"), torch.bfloat16).eval()
+    z = torch.randn(6, ggen.dim_z, generator=torch.Generator().manual_seed(seed + 10))
+    got = ggen.decode(z)
+    assert len(fused_on_cpu.calls) == 4
+    fused_on_cpu.on = False
+    want = ggen.decode(z)
+    assert len(fused_on_cpu.calls) == 4 and got.shape == want.shape == (6, 64, 64, channel)
+    diff = (got.float() - want.float()).abs().max().item()
+    assert diff <= BF16_ATOL, diff
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("geometric_info,in_ch", GEOMETRY)
+def test_cgen_eval_forward_on_the_fused_op_matches_the_modules(fused_on_cpu, geometric_info, in_ch, seed):
+    cgen = _redrawn(ColorVideoGenerator(in_ch=in_ch, dim_z=4, geometric_info=geometric_info, ngf=8), seed)
+    cast_for_compute(cgen, torch.device("cpu"), torch.bfloat16).eval()
+    g = torch.Generator().manual_seed(seed + 20)
+    x = torch.rand(4, in_ch, 64, 64, generator=g) * 2 - 1
+    z = torch.randn(4, 4, generator=g)
+    got = cgen(x, z)
+    assert len(fused_on_cpu.calls) == 6 and got.is_contiguous(memory_format=torch.channels_last)
+    fused_on_cpu.on = False
+    want = cgen(x, z)
+    assert len(fused_on_cpu.calls) == 6 and got.shape == want.shape == (4, 3, 64, 64)
+    diff = (got.float() - want.float()).abs().max().item()
+    assert diff <= BF16_ATOL, diff
+
+
+def _train_forwards(cgen, ggen, x, z, zg):
+    masks = cgen.dropout_masks(x.shape[0], torch.Generator().manual_seed(5), x.device)
+    return [cgen(x, z, train=True, update_stats=False, dropout_masks=masks), ggen.decode(zg, train=True, update_stats=False)]
+
+
+@pytest.mark.parametrize("case", ["train", "group", "float32"])
+def test_train_group_norm_and_f32_forwards_keep_the_unfused_path(fused_on_cpu, case):
+    norm = "group" if case == "group" else "batch"
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    cgen = _redrawn(ColorVideoGenerator(in_ch=1, dim_z=4, ngf=8, norm=norm), 3)
+    ggen = _redrawn(GeometricVideoGenerator(ngf=8, norm=norm), 3)
+    for m in (cgen, ggen):
+        cast_for_compute(m, torch.device("cpu"), dtype)
+    g = torch.Generator().manual_seed(4)
+    x, z, zg = torch.rand(2, 1, 64, 64, generator=g), torch.randn(2, 4, generator=g), torch.randn(2, 50, generator=g)
+
+    def forwards():
+        if case == "train":
+            return _train_forwards(cgen, ggen, x, z, zg)
+        return [cgen(x, z), ggen.decode(zg)]
+
+    got = forwards()
+    assert fused_on_cpu.calls == []
+    fused_on_cpu.on = False
+    again = forwards()
+    assert fused_on_cpu.calls == []
+    # the same modules both times; the CPU's f32 convolutions are not bitwise
+    # reproducible from one call to the next (seen: ~1e-7 apart)
+    for a, b in zip(got, again):
+        torch.testing.assert_close(a, b)
+
+
+def test_decodes_fused_takes_eval_batch_norm_bf16_on_cuda_only():
+    assert not layers.decodes_fused(torch.zeros(1, 8, 2, 2, dtype=torch.bfloat16), False, "batch")  # the CPU
+    on_cuda = types.SimpleNamespace(dtype=torch.bfloat16, is_cuda=True)
+    assert layers.decodes_fused(on_cuda, False, "batch")
+    assert not layers.decodes_fused(on_cuda, True, "batch")
+    assert not layers.decodes_fused(on_cuda, False, "group")
+    assert not layers.decodes_fused(types.SimpleNamespace(dtype=torch.float32, is_cuda=True), False, "batch")
+
+
+def test_gemm_weight_is_packed_once_per_weight_version():
+    w = torch.nn.Parameter(torch.randn(16, 8, 4, 4))
+    first = up.gemm_weight(w, 8)
+    assert up.gemm_weight(w, 8) is first
+    torch.testing.assert_close(first, up.pack_weight(w.detach(), 8))
+    with torch.no_grad():
+        w.mul_(2.0)  # an in-place update moves the version: packed anew
+    second = up.gemm_weight(w, 8)
+    assert second is not first
+    torch.testing.assert_close(second, 2.0 * first)
+    assert up.gemm_weight(w, 16) is not second  # another split of the channels
+    with torch.inference_mode():
+        t = w.detach() * 1.0  # an inference tensor has no version: packed at each call
+        assert up.gemm_weight(t, 8) is not up.gemm_weight(t, 8)
+
+
+# ---- the CUDA kernel against its plain version (on the card)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+# and persistent CTAs that each walk several units
+GPU_CASES = SCHEDULE_CASES + [(512, 4, 4, 512, 0, 256, "k4s2"), (64, 32, 32, 64, 64, 64, "k4s2"),
+                              (512, 16, 16, 128, 128, 64, "k4s2"), (32, 64, 64, 64, 64, 3, "k3s1")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,w,c1,c2,cout,route", GPU_CASES)
+def test_kernel_matches_plain_on_gpu(cuda, n, h, w, c1, c2, cout, route):
+    x, scale, shift, wt, skip = _case(n, h, w, c1, c2, cout, route, seed=6, dtype=torch.bfloat16)
+    x, scale, shift, wt = x.to(cuda), scale.to(cuda), shift.to(cuda), wt.to(cuda)
+    skip = None if skip is None else skip.to(cuda)
+    _, stride, padding = KERNEL[route]
+    before = up.fused_norm_act_up_conv.launches
+    got = up.fused_norm_act_up_conv(x, scale, shift, wt, skip, stride, padding)
+    again = up.fused_norm_act_up_conv(x, scale, shift, wt, skip, stride, padding)
+    want = up.reference_norm_act_up_conv(x, scale, shift, wt, skip, stride, padding)
+    torch.cuda.synchronize()
+    assert up.fused_norm_act_up_conv.launches == before + 2
+    assert torch.equal(got, again)  # no atomics: the same bytes
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0**-7, atol=1e-3)

@@ -29,6 +29,15 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
    launches are counted by route on the serving path of phase 4 (9 k4s2 +
    1 k3s1 a sampling round) and on the training run of phase 5 (10 for each
    ``log_samples`` round, none in the train steps);
+3c. ``onehot_conv3x3`` (the colour generator's segmentation input: argmax,
+   +-1 one-hot, inconv and LeakyReLU in one launch): held to its plain
+   version in f32 at the serving shape (N = 4096, 25 classes, Cout 64) and
+   at edge shapes (two launches each, the same bytes), timed beside its
+   bound, the unfused bf16 chain and cuDNN's conv alone ("time onehot");
+   its launches counted on ``configs/surreal-segm.yml``'s serving path (4 a
+   chunk), on the flagship's (none; phase 4 asserts none too) and in a
+   surreal-segm train step (none). ``python3 chip_smoke.py --onehot-conv``
+   runs this phase alone, which builds ``onehot_conv`` on its first call;
 4. the serving path: ``dcvgan_torch.cli.serve``'s ``serve()`` and
    ``GenerationServer.generate`` at the flagship width
    (``configs/mug-depth.yml``: depth, ngf 64, bf16, batch 256, seeded weights),
@@ -529,6 +538,7 @@ def phase_slice(card: str) -> int:
     from dcvgan_torch.ops.dequant import dequantize_video
     from dcvgan_torch.ops.fused_block import fused_norm_act_conv
     from dcvgan_torch.ops.fused_up import fused_norm_act_up_conv
+    from dcvgan_torch.ops.onehot_conv import onehot_conv3x3
     from dcvgan_torch.train.state import GeneratorState
     from dcvgan_torch.train.step import DCVGAN
 
@@ -569,6 +579,7 @@ def phase_slice(card: str) -> int:
     fused_norm_act_up_conv.launches = 0
     fused_norm_act_up_conv.routes.clear()
     dequantize_video.launches = 0
+    onehot_conv3x3.launches = 0
     # -- main path: counts from 0 ------------------------------------------
     t0 = time.perf_counter()
     xg, xc = gan.sample_videos(state, prng.base_key(11, "cuda"), batch)
@@ -594,8 +605,8 @@ def phase_slice(card: str) -> int:
     if up_launches != 10 * forwards or up_routes != {"k4s2": 9 * forwards, "k3s1": forwards}:
         raise AssertionError(f"expected {10 * forwards} fused_norm_act_up_conv launches "
                              f"({9 * forwards} k4s2 + {forwards} k3s1), counted {up_launches} {up_routes}")
-    if dequantize_video.launches != 0:
-        raise AssertionError("the serving path launched dequantize_video")
+    if dequantize_video.launches != 0 or onehot_conv3x3.launches != 0:
+        raise AssertionError("the serving path launched dequantize_video or onehot_conv3x3")
     for name, v in (("geometry", xg), ("colour", xc)):
         vf = v.float()
         if not torch.isfinite(vf).all() or vf.abs().max().item() > 1.0:
@@ -634,14 +645,17 @@ UP_EDGE_CASES = [
 ]
 
 
-def decoder_sites(ggen, cgen, image_size: int = 64) -> list:
+def decoder_sites(ggen, cgen, image_size: int = 64, prefix: str = "") -> list:
     """Every fused_norm_act_up_conv launch of one sampling round, in order:
-    (name, H = W of x, C_x, C_skip, Cout, route)."""
+    (name, H = W of x, C_x, C_skip, Cout, route); ggen's alone where
+    ``cgen`` is None."""
     convs = [m for m in ggen.main if isinstance(m, torch.nn.ConvTranspose2d)]
     sites, h = [], 4
     for i, conv in enumerate(convs[1:], 1):
-        sites.append((f"ggen.up{i}", h, conv.in_channels, 0, conv.out_channels, "k4s2"))
+        sites.append((f"{prefix}ggen.up{i}", h, conv.in_channels, 0, conv.out_channels, "k4s2"))
         h *= 2
+    if cgen is None:
+        return sites
     h = 2
     for i in range(1, len(cgen.up_blocks)):
         c1, conv = cgen.up_blocks[i - 1].main[0].out_channels, cgen.up_blocks[i].main[0]
@@ -702,29 +716,41 @@ def check_up(n, h, w, c1, c2, cout, route, label) -> float:
     return d.max().item()
 
 
+def segm_ggen_sites() -> list:
+    """ggen's four fused sites at surreal-segm's widths (ngf 96, 25 classes)."""
+    from dcvgan_torch.config import load_config
+    from dcvgan_torch.models.ggen import GeometricVideoGenerator
+
+    cfg = load_config(ROOT / "configs" / "surreal-segm.yml")
+    ggen = GeometricVideoGenerator(channel=cfg.geometric_info.channel, geometric_info=cfg.geometric_info.name,
+                                   ngf=cfg.ggen.ngf, image_size=cfg.image_size)
+    return decoder_sites(ggen, None, cfg.image_size, prefix="surreal.")
+
+
 def phase_fused_up(card: str) -> dict:
     """fused_norm_act_up_conv: held to its plain version at the serving
-    path's ten sites at N = 4096 and at edge shapes; timed at each site
-    against the bound, the plain version, cuDNN's conv_transpose2d on the
-    materialised activation and the unfused chain it replaces; two
-    same-seed chunks byte for byte."""
+    path's ten sites and surreal-segm's four ggen sites (ngf 96) at N = 4096
+    and at edge shapes; timed at each site against the bound, the plain
+    version, cuDNN's conv_transpose2d on the materialised activation and the
+    unfused chain it replaces; two same-seed chunks byte for byte."""
     import torch.nn.functional as F
 
     from dcvgan_torch.cli.serve import make_chunk_fn
     from dcvgan_torch.config import load_config
-    from dcvgan_torch.ops.fused_up import fused_norm_act_up_conv, reference_norm_act_up_conv
+    from dcvgan_torch.ops.fused_up import fused_norm_act_up_conv, plan, reference_norm_act_up_conv
     from dcvgan_torch.train.step import DCVGAN
 
     cfg = load_config(ROOT / "configs" / f"{FLAGSHIP}.yml")
     gan = DCVGAN(cfg)
     state = gan.init_state(cfg.seed)
     served = state.generators()
-    sites = decoder_sites(served.ggen, served.cgen, cfg.image_size)
+    sites = decoder_sites(served.ggen, served.cgen, cfg.image_size) + segm_ggen_sites()
     errs = [check_up(N_FRAMES, h, h, c1, c2, cout, route, name) for name, h, c1, c2, cout, route in sites]
     errs += [check_up(n, h, w, c1, c2, cout, route, label) for label, n, h, w, c1, c2, cout, route in UP_EDGE_CASES]
     torch.cuda.empty_cache()
 
-    rows, total = [], {"kernel_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "chain_ms": 0.0, "plain_ms": 0.0}
+    keys = ("kernel_ms", "bound_ms", "library_ms", "chain_ms", "plain_ms")
+    rows, total, segm_total = [], dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
     for name, h, c1, c2, cout, route in sites:
         x, scale, shift, wt, skip = up_inputs(N_FRAMES, h, h, c1, c2, cout, route, seed=3)
         stride = 2 if route == "k4s2" else 1
@@ -746,8 +772,10 @@ def phase_fused_up(card: str) -> dict:
         }
         row["bound_ms"], row["bound_by"] = up_bound(N_FRAMES, h, c1, c2, cout, route)
         row["of_bound"] = row["bound_ms"] / row["kernel_ms"]
-        for k in total:
-            total[k] += row[k]
+        p = plan(N_FRAMES, h, h, c1, c2, cout, route)
+        row["unit"] = f"{p.phases}x{p.mblocks}x{p.bn} {'r' if p.resident else 's'}"
+        for k in keys:
+            (segm_total if name.startswith("surreal.") else total)[k] += row[k]
         rows.append(row)
         print("time up " + json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in row.items()}),
               flush=True)
@@ -757,6 +785,9 @@ def phase_fused_up(card: str) -> dict:
           f"bound {total['bound_ms']:.3f} ({total['bound_ms'] / total['kernel_ms']:.1%} of it), cuDNN conv on the "
           f"materialised input {total['library_ms']:.3f}, unfused chain {total['chain_ms']:.3f}, plain "
           f"{total['plain_ms']:.3f} ({card})", flush=True)
+    print(f"fused_norm_act_up_conv, surreal-segm's four ggen sites (ngf 96) at N={N_FRAMES}: kernel "
+          f"{segm_total['kernel_ms']:.3f} ms, bound {segm_total['bound_ms']:.3f}, cuDNN conv "
+          f"{segm_total['library_ms']:.3f}, unfused chain {segm_total['chain_ms']:.3f} ({card})", flush=True)
 
     # two chunks from one seed: the same bytes
     chunk_fn = make_chunk_fn(gan, 256, 4)
@@ -769,7 +800,130 @@ def phase_fused_up(card: str) -> dict:
         raise AssertionError("two chunks from one seed differ")
     print(f"two same-seed chunks (256 x 4 videos): equal byte for byte, checksum {int(outs[0][0])}", flush=True)
     return {"name": "fused_norm_act_up_conv", "source": "dcvgan_torch/csrc/fused_up.cu", "replaces": None,
-            "max_abs_err": max(errs), "sites": rows, **total}
+            "max_abs_err": max(errs), "sites": rows, **total, "surreal_ggen": segm_total}
+
+# (N, C, H, W, Cout) of onehot_conv3x3 beside the serving shape (4096, 25,
+# 64, 64, 64): class counts 2, 5, 7 and 25, Cout 8, 16 and 64, W != H,
+# images of one row or column, tiles that are not whole rows of the image,
+# scores staged without 16-byte pieces (W * C not a multiple of 8)
+ONEHOT_EDGE_CASES = [(2, 25, 64, 64, 64), (3, 2, 5, 7, 8), (2, 5, 9, 4, 64), (1, 25, 1, 6, 8), (2, 5, 7, 1, 64),
+                     (2, 2, 13, 40, 64), (1, 25, 3, 3, 8), (5, 25, 64, 64, 64), (3, 7, 33, 17, 16)]
+# |kernel - plain| <= one bf16 ulp of the larger magnitude + ONEHOT_ATOL: the
+# plain version runs in f32 (TF32 off) on the same bf16 scores and weights
+# and rounds once, as the kernel does; the two sum the same f32 terms in
+# another order (the kernel's table rows are sums of 25 weights), which
+# near 0 leaves ~1e-6 that one ulp there does not cover
+ONEHOT_ATOL = 1e-5
+
+
+def onehot_inputs(n, c, h, w, cout, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    p = torch.softmax(torch.randn(n, c, h, w, generator=g, device="cuda") * 3, 1)
+    p = p.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    wt = (torch.randn(cout, c, 3, 3, generator=g, device="cuda") * 0.05).to(torch.bfloat16)
+    return p, wt
+
+
+def check_onehot(n, c, h, w, cout) -> float:
+    """onehot_conv3x3 against its plain version in f32; returns max |diff|."""
+    from dcvgan_torch.ops.onehot_conv import onehot_conv3x3, reference_onehot_conv3x3
+
+    p, wt = onehot_inputs(n, c, h, w, cout, seed=c + h)
+    got, again = onehot_conv3x3(p, wt), onehot_conv3x3(p, wt)
+    torch.cuda.synchronize()
+    if got.shape != (n, cout, h, w) or not got.is_contiguous(memory_format=torch.channels_last):
+        raise AssertionError(f"onehot_conv3x3 N={n} C={c} {h}x{w}: shape {tuple(got.shape)} or layout off")
+    if not torch.equal(got, again):
+        raise AssertionError(f"onehot_conv3x3 N={n} C={c} {h}x{w}: two calls gave other bytes")
+    worst, worst_ulps = 0.0, 0.0
+    for i in range(0, n, 512):  # the f32 plain version a slice at a time
+        want = reference_onehot_conv3x3(p[i:i + 512].float().contiguous(memory_format=torch.channels_last),
+                                        wt.float())
+        g = got[i:i + 512].float()
+        d = (g - want).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(g.abs(), want.abs()).clamp(min=2.0**-126))) - 7)
+        if (d > ulp + ONEHOT_ATOL).any():
+            raise AssertionError(f"onehot_conv3x3 N={n} C={c} {h}x{w} Cout={cout}: {int((d > ulp + ONEHOT_ATOL).sum())} "
+                                 f"outputs off, max |diff| {d.max().item():.3e}")
+        worst = max(worst, d.max().item())
+        worst_ulps = max(worst_ulps, (torch.where(d > ONEHOT_ATOL, d, torch.zeros_like(d)) / ulp).max().item())
+    print(f"check onehot N={n} C={c} {h}x{w} Cout={cout}: max|diff| {worst:.3e}, {worst_ulps:.2f} ulp where over "
+          f"{ONEHOT_ATOL:g} (tol one bf16 ulp + {ONEHOT_ATOL:g}), same bytes twice", flush=True)
+    return worst
+
+
+def phase_onehot_conv(card: str) -> dict:
+    """onehot_conv3x3 (the colour generator's segmentation input): held to its
+    plain version at the serving shape (N = 4096, 25 classes, Cout 64) and at
+    edge shapes; timed against its bound, the plain version (the unfused
+    chain cgen ran: argmax, one-hot, cast, cuDNN's conv, LeakyReLU) and
+    cuDNN's conv alone on the materialised one-hot; its launches counted on
+    surreal-segm's serving path (4 a chunk), on mug-depth's (none) and in a
+    surreal-segm train step (none)."""
+    import torch.nn.functional as F
+
+    from dcvgan_torch import prng
+    from dcvgan_torch.cli.serve import Sink, serve
+    from dcvgan_torch.config import load_config
+    from dcvgan_torch.ops.onehot_conv import onehot_conv3x3, reference_onehot_conv3x3
+    from dcvgan_torch.train.step import DCVGAN
+    from portbench.traffic.sample_segm import onehot_bound
+
+    segm = load_config(ROOT / "configs" / "surreal-segm.yml")
+    c, cout = segm.geometric_info.channel, segm.cgen.ngf
+    errs = [check_onehot(N_FRAMES, c, 64, 64, cout)] + [check_onehot(*shape) for shape in ONEHOT_EDGE_CASES]
+
+    p, wt = onehot_inputs(N_FRAMES, c, 64, 64, cout, seed=9)
+    x = (F.one_hot(p.argmax(1), c).to(p.dtype) * 2.0 - 1.0).permute(0, 3, 1, 2)
+    row = {"site": "cgen.inconv (segmentation)", "N": N_FRAMES, "C": c, "Cout": cout,
+           "kernel_ms": cuda_ms(lambda: onehot_conv3x3(p, wt)),
+           "library_ms": cuda_ms(lambda: F.conv2d(x, wt, padding=1)),
+           "plain_ms": cuda_ms(lambda: reference_onehot_conv3x3(p, wt), runs=3)}
+    bound_s, flops, nbytes = onehot_bound(N_FRAMES, c, 64, 64, cout)
+    row["bound_ms"] = bound_s * 1e3
+    row["bound_by"] = "bytes" if nbytes / PEAK_BYTES_PER_S >= flops / PEAK_FLOPS[torch.float32] else "operations"
+    row["of_bound"] = row["bound_ms"] / row["kernel_ms"]
+    print("time onehot " + json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in row.items()})
+          + f" ({card})", flush=True)
+    del p, wt, x
+    torch.cuda.empty_cache()
+
+    counts = {}
+    for name, chunks in (("surreal-segm", 2), (FLAGSHIP, 2)):
+        cfg = load_config(ROOT / "configs" / f"{name}.yml")
+        gan = DCVGAN(cfg)
+        served = gan.init_state(cfg.seed).generators()
+        onehot_conv3x3.launches = 0
+        stats = serve(gan, served, 256, 4, chunks, Sink("null", None, cfg.geometric_info.name, False), seed=0)
+        torch.cuda.synchronize()
+        counts[name] = onehot_conv3x3.launches
+        want = 4 * (chunks + 1) if name == "surreal-segm" else 0  # serve()'s warm-up chunk is a chunk too
+        print(f"{name} serve: {counts[name]} onehot_conv3x3 launches for {chunks + 1} chunks of 4 rounds "
+              f"(warm-up included; expected {want}), {stats['value']} videos/s", flush=True)
+        if counts[name] != want:
+            raise AssertionError(f"{name}: expected {want} onehot_conv3x3 launches, counted {counts[name]}")
+        del gan, served
+        torch.cuda.empty_cache()
+
+    gan = DCVGAN(segm)
+    state = gan.init_state(segm.seed)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    classes = torch.randint(0, c, (8, 16, 64, 64), generator=g, device="cuda")
+    batch = {"color": torch.rand(8, 16, 64, 64, 3, generator=g, device="cuda") * 2 - 1,
+             "segmentation": F.one_hot(classes, c).float()}
+    onehot_conv3x3.launches = 0
+    state, metrics = gan.train_step(state, batch, prng.base_key(1, "cuda"))
+    torch.cuda.synchronize()
+    counts["train_step"] = onehot_conv3x3.launches
+    print(f"surreal-segm train step (batch 8): {counts['train_step']} onehot_conv3x3 launches, losses "
+          f"{json.dumps({k: round(float(v), 4) for k, v in metrics.items()})}", flush=True)
+    if counts["train_step"] != 0 or not all(math.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError("a train step launched onehot_conv3x3 or its losses are not finite")
+    del gan, state
+    torch.cuda.empty_cache()
+    return {"name": "onehot_conv3x3", "source": "dcvgan_torch/csrc/onehot_conv.cu", "replaces": None,
+            "max_abs_err": max(errs), **row, "launches": counts}
+
 
 F32_SERVE_BATCH, F32_SERVE_ITERS, F32_SERVE_CHUNKS = 256, 2, 4
 
@@ -3453,8 +3607,12 @@ def main() -> int:
     if sys.argv[1:2] == ["--fused-up"]:  # that phase alone
         print(json.dumps({"fused_up": phase_fused_up(card)}))
         return 0
+    if sys.argv[1:2] == ["--onehot-conv"]:  # that phase alone
+        print(json.dumps({"onehot_conv": phase_onehot_conv(card)}))
+        return 0
     entry = phase_kernels()
     up_entry = phase_fused_up(card)
+    onehot_entry = phase_onehot_conv(card)
     dequant_entry = phase_dequant()
     # each kernel's launches on the serving main path, counted from 0
     entry["launches"], up_entry["serve_launches"] = phase_slice(card)
@@ -3511,7 +3669,7 @@ def main() -> int:
                                evaluation["fused_err"], inference["fused_err"], served["fused_err"],
                                parallel["fused_err"], timed["fused_err"], h2h["fused_err"], tools["fused_err"])
 
-    print(json.dumps({"kernels": [entry, dequant_entry, up_entry]}))
+    print(json.dumps({"kernels": [entry, dequant_entry, up_entry, onehot_entry]}))
     print(card_line())
     print(json.dumps({
         "ok": True,

@@ -264,6 +264,19 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)
 }
 
 template <>
+__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+      : F4(0), F4(4), F4(8), F4(12), F4(16), F4(20), F4(24), F4(28), F4(32), F4(36), F4(40), F4(44)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
@@ -723,6 +736,9 @@ int launch_bn(int bn, const CUtensorMap& tm_x, const CUtensorMap& tm_s, const CU
     case 64:
       if constexpr (P * MB <= 2) return launch<S, P, MB, 64>(tm_x, tm_s, tm_w, p, grid, smem, s);
       return static_cast<int>(cudaErrorInvalidValue);
+    case 96:  // Cout 96 or 192: whole 96-channel tiles where 128 would leave a quarter empty
+      if constexpr (P * MB == 1) return launch<S, P, MB, 96>(tm_x, tm_s, tm_w, p, grid, smem, s);
+      return static_cast<int>(cudaErrorInvalidValue);
     case 128:
       if constexpr (P * MB == 1) return launch<S, P, MB, 128>(tm_x, tm_s, tm_w, p, grid, smem, s);
       return static_cast<int>(cudaErrorInvalidValue);
@@ -760,7 +776,7 @@ int fused_up_conv(const void* x, const void* skip, const void* scale, const void
   const int group = (stride == 2 ? 4 / phases : 1) * ((cout + bn - 1) / bn);
   const bool ok = stride == S && (phases == 1 || (stride == 2 && phases == 4 && resident)) &&
                   (mblocks == 1 || mblocks == 2) && phases * mblocks * bn <= 128 && c1 > 0 && c1 % 8 == 0 && c2 >= 0 && c2 % 8 == 0 &&
-                  (c2 == 0) == (skip == nullptr) && cout >= 1 && (bn == 16 || bn == 32 || bn == 64 || bn == 128) &&
+                  (c2 == 0) == (skip == nullptr) && cout >= 1 && (bn == 16 || bn == 32 || bn == 64 || bn == 96 || bn == 128) &&
                   region_stages >= 2 && w_stages >= 1 && region_rows >= 1 && region_rows <= 256 && w_in <= 256 &&
                   n_units == m_tiles * group && grid >= 1 && grid <= n_units && tiles != nullptr && ptrs % 16 == 0;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);

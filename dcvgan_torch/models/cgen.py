@@ -8,6 +8,12 @@ k4 s2 p1 + BatchNorm [+ Dropout2d on the first two] + ReLU) with skips;
 outconv = transposed conv3x3 + tanh. Segmentation inputs are re-binarised
 to a +-1 one-hot by argmax.
 
+In eval mode in bfloat16 on CUDA a segmentation input's argmax, one-hot,
+inconv and LeakyReLU are one launch of :func:`onehot_conv3x3`
+(``ops/onehot_conv.py``: the conv of a +-1 one-hot as a gather of weight
+rows), inside the span ``cgen.onehot_conv`` (``utils/trace.py``). Train mode,
+float32 and the CPU keep the modules.
+
 In eval mode the down path runs on :func:`fused_norm_act_conv`: there a
 BatchNorm is a per-channel affine, so down block i (i >= 1) is exactly
 ``fused_norm_act_conv(raw_{i-1}, fold(bn_{i-1}), w_i)`` where ``raw_{i-1}``
@@ -66,12 +72,15 @@ from dcvgan_torch.models.layers import (
     init_weights_,
     leaky_relu,
     norm_layer,
+    onehot_fused,
     same_pad_conv,
     unfold_time,
     up_conv,
 )
 from dcvgan_torch.ops.fused_block import fused_norm_act_conv
 from dcvgan_torch.ops.fused_up import fused_norm_act_up_conv
+from dcvgan_torch.ops.onehot_conv import onehot_conv3x3
+from dcvgan_torch.utils import trace
 
 
 class _Block(nn.Module):
@@ -171,13 +180,16 @@ class ColorVideoGenerator(nn.Module):
             raise ValueError("a train-mode forward takes its dropout masks (dropout_masks())")
         dtype = self.compute_dtype
         x = x.to(dtype).contiguous(memory_format=torch.channels_last)
-        if self.geometric_info == "segmentation":
-            # argmax cuts the gradient here, as stop_gradient does in JAX
-            idx = x.argmax(dim=1)
-            x = F.one_hot(idx, x.shape[1]).to(dtype) * 2.0 - 1.0
-            x = x.permute(0, 3, 1, 2)  # NHWC memory: a channels-last view
-
-        hs = [self.inconv.main(x)]
+        if self.geometric_info == "segmentation" and onehot_fused(x, train):
+            with trace.span("cgen.onehot_conv"):
+                hs = [onehot_conv3x3(x, self.inconv.main[0].weight.to(dtype), 0.01)]
+        else:
+            if self.geometric_info == "segmentation":
+                # argmax cuts the gradient here, as stop_gradient does in JAX
+                idx = x.argmax(dim=1)
+                x = F.one_hot(idx, x.shape[1]).to(dtype) * 2.0 - 1.0
+                x = x.permute(0, 3, 1, 2)  # NHWC memory: a channels-last view
+            hs = [self.inconv.main(x)]
         if train or self.norm == "group":
             h = hs[0]
             for blk in self.down_blocks:

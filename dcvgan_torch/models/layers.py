@@ -306,6 +306,14 @@ def decodes_fused(x: torch.Tensor, train: bool, norm: str) -> bool:
     return not train and norm == "batch" and x.dtype == torch.bfloat16 and x.is_cuda
 
 
+def onehot_fused(x: torch.Tensor, train: bool) -> bool:
+    """Whether the colour generator's segmentation input runs on
+    ``ops.onehot_conv.onehot_conv3x3`` (argmax, +-1 one-hot, inconv and
+    LeakyReLU in one launch) for input ``x``: eval mode, bfloat16, on CUDA.
+    Train mode, float32 and the CPU keep the unfused modules."""
+    return not train and x.dtype == torch.bfloat16 and x.is_cuda
+
+
 class RowsOfBatch(NamedTuple):
     """Draws of a batch of ``total`` rows from ``generator``, of which this
     rank keeps ``rows``: a rank's share of a global batch's draw."""

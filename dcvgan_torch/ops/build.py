@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so``, compiled by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface. The
 hash covers the source, the shared headers and the flags, so an edited
 source builds anew and an unchanged one is reused. Every source that is not
-built yet gets its own ``nvcc`` process, all started together. Nothing is
-built at import time: the first :func:`library` call builds what is missing.
+built yet gets its own ``nvcc`` process, all started together, except those
+in :data:`ON_DEMAND`, which build only when their own library is asked for.
+Nothing is built at import time: the first :func:`library` call builds what
+is missing.
 :func:`hashed_target`, :func:`start_build` and :func:`finish_build` are the
 steps of one build, shared with the host library (``dcvgan_torch/native``),
 which g++ compiles.
@@ -31,6 +33,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-lineinfo",
     "-shared", "-Xcompiler", "-fPIC",
 )
+
+# sources that only some configurations run: a run that never asks for
+# their library never builds it (segmentation's one-hot input conv)
+ON_DEMAND = frozenset({"onehot_conv"})
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -90,14 +96,18 @@ def target(name: str) -> Path:
     return hashed_target(name, [CSRC_DIR / f"{name}.cu", *headers], NVCC_FLAGS)
 
 
-def build_all() -> Dict[str, float]:
-    """Compile every source whose library is missing, one nvcc each, in parallel.
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile every source whose library is missing, one nvcc each, in
+    parallel: those named in ``names``, or by default all of them.
 
     Returns the seconds each compiled source took; raises with the compiler's
     output if any fails.
     """
+    wanted = None if names is None else set(names)
     todo = {}
     for src in sorted(CSRC_DIR.glob("*.cu")):
+        if wanted is not None and src.stem not in wanted:
+            continue
         out = target(src.stem)
         if not out.exists():
             todo[src.stem] = (src, out)
@@ -119,12 +129,13 @@ def build_all() -> Dict[str, float]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed, with
+    every other missing library that is not :data:`ON_DEMAND`."""
     lib = _loaded.get(name)
     if lib is None:
         path = target(name)
         if not path.exists():
-            build_all()
+            build_all({p.stem for p in CSRC_DIR.glob("*.cu")} - ON_DEMAND | {name})
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
     return lib

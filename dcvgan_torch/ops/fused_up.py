@@ -60,6 +60,10 @@ MIN_W_STAGES, MAX_W_STAGES = 2, 12  # the streamed weight ring
 # may take to stay resident for a CTA's whole walk
 RESIDENT_BYTES = 160 * 1024
 H100_SMS = 132
+# the one tile width that is no power of two: a Cout that 96 divides and 128
+# does not (ggen's 192 and 96 at ngf 96) fills its tiles, where 128-channel
+# tiles would leave a quarter of every product empty
+WIDE_ODD = 96
 # (kernel, stride, padding) -> route: output phases and taps a phase
 GEOMETRIES = {(4, 2, 1): "k4s2", (3, 1, 1): "k3s1"}
 PHASES = {"k4s2": 4, "k3s1": 1}
@@ -74,7 +78,7 @@ class Plan:
     route: str  # "k4s2" or "k3s1"
     phases: int  # output phases a unit computes: 1, or 4 (k4s2, resident weights)
     mblocks: int  # m-blocks of 64 rows a consumer warpgroup takes: a unit is TILE_M * mblocks positions
-    bn: int  # output channels per tile
+    bn: int  # output channels per tile: 16, 32, 64, 128, or WIDE_ODD
     region_stages: int  # staged regions: one CHUNK of channels of a tile's rows each
     w_stages: int  # weight stages: one tap x CHUNK channels x bn rows each
     resident: bool  # each CTA loads its units' weights once (w_stages = chunks x a unit's taps)
@@ -140,7 +144,7 @@ def _schedule(n, h, w, c1, c2, cout, route, unit_phases, mblocks, bn, sms) -> Op
     groups = PHASES[route] // unit_phases
     # a small site splits Cout until the grid covers at least half the card
     while m_tiles * groups * -(-cout // bn) < sms // 2 and bn >= 32:
-        bn //= 2
+        bn = 32 if bn == WIDE_ODD else bn // 2
     group = groups * -(-cout // bn)  # units of one M tile
     units = m_tiles * group
     region, stage = _up(rows * w * ROW_BYTES, 1024), _up(bn * ROW_BYTES, 1024)
@@ -183,7 +187,8 @@ def plan(
     region and 9 A gathers for 16 products); two m-blocks of 64 rows a
     warpgroup where one tile of up to 64 channels covers Cout (half the
     weight bytes and staged halo rows a position); one m-block at up to
-    128 channels."""
+    128 channels, or at 96 where 96 divides Cout and 128 does not (ngf 96's
+    192 and 96: 1.84 -> 1.68 and 2.15 -> 1.50 ms at N = 4096, PERF.md)."""
     if route not in PHASES:
         raise ValueError(f"unknown route {route!r}")
     if not aligned:
@@ -197,6 +202,8 @@ def plan(
     widest = 16
     while widest < min(cout, 128):
         widest *= 2
+    if cout % 128 and cout % WIDE_ODD == 0:  # Cout 96, 192, 288, ...: whole 96-channel tiles
+        widest = WIDE_ODD
     shapes = [(1, 1, widest)]  # (phases, m-blocks, channels a tile at most): the last, streamed if need be
     if widest <= 64:
         shapes.insert(0, (1, 2, widest))

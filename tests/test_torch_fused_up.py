@@ -40,6 +40,15 @@ SERVING_SITES = [
     (32, 64, 64, 64, "k4s2"),
     (64, 64, 64, 3, "k3s1"),
 ]
+# surreal-segm's four ggen sites (ngf 96, 25 segmentation classes): K 768
+# and 384 streamed, Cout 96 and 25 short of a whole tile, C_x 96 a chunk
+# and a half
+SEGM_SITES = [
+    (4, 768, 0, 384, "k4s2"),
+    (8, 384, 0, 192, "k4s2"),
+    (16, 192, 0, 96, "k4s2"),
+    (32, 96, 0, 25, "k4s2"),
+]
 # other shapes: Cout 1, 2, 3, no skip, channel runs that are not whole
 # 64-channel chunks, W != H, images smaller than a tile's rows, borders
 EDGE_SITES = [
@@ -107,7 +116,8 @@ def _emulated(x, scale, shift, w, skip, route):
     return out
 
 
-@pytest.mark.parametrize("site", SERVING_SITES, ids=[f"{s[4]}-h{s[0]}-{s[1]}+{s[2]}-{s[3]}" for s in SERVING_SITES])
+@pytest.mark.parametrize("site", SERVING_SITES + SEGM_SITES,
+                         ids=[f"{s[4]}-h{s[0]}-{s[1]}+{s[2]}-{s[3]}" for s in SERVING_SITES + SEGM_SITES])
 def test_emulated_kernel_matches_the_materialised_conv_at_the_serving_sites(site):
     h, c1, c2, cout, route = site
     n = 2 if h <= 32 else 1
@@ -176,7 +186,7 @@ def test_rejects_what_the_kernel_does_not_take():
 
 # ---- the planner (ops/fused_up.py: plan, tile_table), as pure Python
 
-SCHEDULE_CASES = [(3, h, h, c1, c2, co, r) for h, c1, c2, co, r in SERVING_SITES] + [
+SCHEDULE_CASES = [(3, h, h, c1, c2, co, r) for h, c1, c2, co, r in SERVING_SITES + SEGM_SITES] + [
     (300, 2, 2, 256, 256, 256, "k4s2"),
     (5, 4, 12, 64, 0, 64, "k4s2"),
     (7, 6, 6, 8, 0, 3, "k4s2"),
@@ -242,7 +252,8 @@ def _sites(ggen, cgen, image_size=64):
     return sites
 
 
-@pytest.mark.parametrize("geometric_info,channel", [("depth", 1), ("optical-flow", 2), ("segmentation", 5)])
+@pytest.mark.parametrize("geometric_info,channel", [("depth", 1), ("optical-flow", 2), ("segmentation", 5),
+                                                    ("segmentation", 25)])
 @pytest.mark.parametrize("ngf", [8, 32, 64, 96])
 def test_plan_takes_every_site_of_every_width_in_shared_memory(ngf, geometric_info, channel):
     ggen = GeometricVideoGenerator(channel=channel, geometric_info=geometric_info, ngf=ngf)
@@ -254,10 +265,11 @@ def test_plan_takes_every_site_of_every_width_in_shared_memory(ngf, geometric_in
             p = up.plan(n, h, h, c1, c2, cout, route)
             assert p.smem <= up.SMEM_LIMIT and up.MIN_REGION_STAGES <= p.region_stages <= up.MAX_REGION_STAGES
             assert p.resident or up.MIN_W_STAGES <= p.w_stages <= up.MAX_W_STAGES
-            assert p.region_rows <= 256 and p.bn in (16, 32, 64, 128)
+            assert p.region_rows <= 256 and p.bn in (16, 32, 64, 96, 128)
 
 
-@pytest.mark.parametrize("n,h,w,c1,c2,cout,route", SCHEDULE_CASES + [(4096, h, h, c1, c2, co, r) for h, c1, c2, co, r in SERVING_SITES])
+@pytest.mark.parametrize("n,h,w,c1,c2,cout,route", SCHEDULE_CASES + [(4096, h, h, c1, c2, co, r)
+                                                                     for h, c1, c2, co, r in SERVING_SITES + SEGM_SITES])
 def test_resident_plans_keep_each_cta_on_one_phase_and_cout_tile(n, h, w, c1, c2, cout, route):
     p = up.plan(n, h, w, c1, c2, cout, route)
     if not p.resident:
@@ -281,6 +293,44 @@ def test_flagship_plans_keep_the_small_k_sites_weights_resident():
     # two m-blocks where one tile of at most 64 channels covers Cout: cgen's up4 and outconv
     assert [k for k, p in plans.items() if p.mblocks == 2] == [(16, 256), (64, 128)]
     assert all(p.phases * p.mblocks * p.bn <= 128 for p in plans.values())
+
+
+# mug-depth's ten plans at N = 4096, field for field after the route: a
+# change for another configuration's shapes leaves these as they are
+FLAGSHIP_PLANS = [
+    (1, 1, 128, 2, 12, False, 32, 132, 230768, 512, 4096),
+    (1, 1, 128, 2, 12, False, 16, 132, 230768, 2048, 8192),
+    (4, 1, 32, 5, 32, True, 9, 132, 225016, 8192, 16384),
+    (4, 1, 16, 6, 16, True, 6, 132, 181776, 32768, 32768),
+    (1, 1, 128, 2, 12, False, 64, 132, 230768, 128, 1024),
+    (1, 1, 128, 2, 12, False, 32, 132, 230768, 512, 4096),
+    (1, 1, 128, 2, 12, False, 16, 132, 230768, 2048, 8192),
+    (1, 2, 64, 3, 16, True, 16, 132, 230856, 4096, 16384),
+    (4, 1, 32, 4, 32, True, 6, 132, 231136, 32768, 65536),
+    (1, 2, 16, 3, 18, True, 6, 132, 185832, 65536, 65536),
+]
+
+
+@pytest.mark.parametrize("site,want", list(zip(SERVING_SITES, FLAGSHIP_PLANS)),
+                         ids=[f"{s[4]}-h{s[0]}-{s[1]}+{s[2]}-{s[3]}" for s in SERVING_SITES])
+def test_flagship_plans_are_pinned(site, want):
+    h, c1, c2, cout, route = site
+    p = up.plan(4096, h, h, c1, c2, cout, route)
+    assert p.route == route
+    assert (p.phases, p.mblocks, p.bn, p.region_stages, p.w_stages, p.resident, p.region_rows, p.grid, p.smem,
+            p.m_tiles, p.units) == want
+
+
+def test_ngf96_plans_take_whole_96_channel_tiles():
+    plans = [up.plan(4096, h, h, c1, c2, co, r) for h, c1, c2, co, r in SEGM_SITES]
+    # K 768 at Cout 384: three whole 128-channel tiles, streamed, as at K = 512
+    assert (plans[0].phases, plans[0].bn, plans[0].resident) == (1, 128, False)
+    # Cout 192 and 96: 96-channel tiles, K 192's weights resident
+    assert [(p.phases, p.mblocks, p.bn, p.resident) for p in plans[1:3]] == [(1, 1, 96, False), (1, 1, 96, True)]
+    # the segmentation head, 25 classes: all four phases a unit, resident
+    assert (plans[3].phases, plans[3].bn, plans[3].resident) == (4, 32, True)
+    # a small grid splits a 96-channel tile into 32-channel ones
+    assert up.plan(2, 2, 2, 192, 0, 96).bn in (16, 32)
 
 
 def test_plan_splits_cout_for_small_grids_and_pads_small_cout_to_16():
@@ -437,7 +487,8 @@ def cuda():
 
 # and persistent CTAs that each walk several units
 GPU_CASES = SCHEDULE_CASES + [(512, 4, 4, 512, 0, 256, "k4s2"), (64, 32, 32, 64, 64, 64, "k4s2"),
-                              (512, 16, 16, 128, 128, 64, "k4s2"), (32, 64, 64, 64, 64, 3, "k3s1")]
+                              (512, 16, 16, 128, 128, 64, "k4s2"), (32, 64, 64, 64, 64, 3, "k3s1")] + [
+    (4096, h, h, c1, c2, co, r) for h, c1, c2, co, r in SEGM_SITES]
 
 
 @pytest.mark.gpu

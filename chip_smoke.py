@@ -38,6 +38,16 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
    chunk), on the flagship's (none; phase 4 asserts none too) and in a
    surreal-segm train step (none). ``python3 chip_smoke.py --onehot-conv``
    runs this phase alone, which builds ``onehot_conv`` on its first call;
+3d. ``softmax_codes`` (ggen's segmentation head: the softmax, its uint8
+   serving codes and their sum in one launch): held to ``torch.softmax``
+   (one bf16 ulp, the exact share printed) and its codes to ``quantize`` of
+   its probabilities byte for byte, at the serving shape (N = 4096, 25
+   classes) and at edge shapes (two launches each, the same bytes); timed
+   beside its bound, the unfused chain and ``torch.softmax`` alone ("time
+   softmax_codes"); its launches counted on surreal-segm's serving path (4
+   a chunk) and mug-depth's (none; phase 4 asserts none too); two
+   same-seed surreal-segm chunks byte for byte. ``python3 chip_smoke.py
+   --softmax-codes`` runs this phase alone;
 4. the serving path: ``dcvgan_torch.cli.serve``'s ``serve()`` and
    ``GenerationServer.generate`` at the flagship width
    (``configs/mug-depth.yml``: depth, ngf 64, bf16, batch 256, seeded weights),
@@ -539,6 +549,7 @@ def phase_slice(card: str) -> int:
     from dcvgan_torch.ops.fused_block import fused_norm_act_conv
     from dcvgan_torch.ops.fused_up import fused_norm_act_up_conv
     from dcvgan_torch.ops.onehot_conv import onehot_conv3x3
+    from dcvgan_torch.ops.softmax_codes import softmax_codes
     from dcvgan_torch.train.state import GeneratorState
     from dcvgan_torch.train.step import DCVGAN
 
@@ -580,6 +591,7 @@ def phase_slice(card: str) -> int:
     fused_norm_act_up_conv.routes.clear()
     dequantize_video.launches = 0
     onehot_conv3x3.launches = 0
+    softmax_codes.launches = 0
     # -- main path: counts from 0 ------------------------------------------
     t0 = time.perf_counter()
     xg, xc = gan.sample_videos(state, prng.base_key(11, "cuda"), batch)
@@ -605,8 +617,8 @@ def phase_slice(card: str) -> int:
     if up_launches != 10 * forwards or up_routes != {"k4s2": 9 * forwards, "k3s1": forwards}:
         raise AssertionError(f"expected {10 * forwards} fused_norm_act_up_conv launches "
                              f"({9 * forwards} k4s2 + {forwards} k3s1), counted {up_launches} {up_routes}")
-    if dequantize_video.launches != 0 or onehot_conv3x3.launches != 0:
-        raise AssertionError("the serving path launched dequantize_video or onehot_conv3x3")
+    if dequantize_video.launches != 0 or onehot_conv3x3.launches != 0 or softmax_codes.launches != 0:
+        raise AssertionError("the serving path launched dequantize_video, onehot_conv3x3 or softmax_codes")
     for name, v in (("geometry", xg), ("colour", xc)):
         vf = v.float()
         if not torch.isfinite(vf).all() or vf.abs().max().item() > 1.0:
@@ -923,6 +935,123 @@ def phase_onehot_conv(card: str) -> dict:
     torch.cuda.empty_cache()
     return {"name": "onehot_conv3x3", "source": "dcvgan_torch/csrc/onehot_conv.cu", "replaces": None,
             "max_abs_err": max(errs), **row, "launches": counts}
+
+
+# (N, C, H, W) of softmax_codes beside the serving shape (4096, 25, 64, 64):
+# one frame, 2 and 33 classes (the kernel's runtime-class route), W = 32,
+# pixel counts off its 256-pixel tile with ragged ends off its 8-element
+# stores
+SOFTMAX_EDGE_CASES = [(1, 25, 64, 64), (3, 2, 64, 64), (2, 33, 64, 64), (5, 25, 32, 32), (7, 25, 5, 3),
+                      (3, 33, 9, 7), (2, 25, 64, 32)]
+
+
+def softmax_codes_bound(n, c, h, w) -> float:
+    """Seconds of one softmax_codes call at the memory's rate: each bf16
+    score read once, each bf16 probability and uint8 code written once."""
+    return n * c * h * w * (2 + 2 + 1) / PEAK_BYTES_PER_S
+
+
+def check_softmax_codes(n, c, h, w) -> float:
+    """softmax_codes against torch.softmax (within one bf16 ulp) and its codes
+    against quantize of its own probabilities (byte for byte); returns the
+    share of probabilities equal to torch.softmax's."""
+    from dcvgan_torch.cli.serve import quantize
+    from dcvgan_torch.ops.softmax_codes import softmax_codes
+
+    g = torch.Generator(device="cuda").manual_seed(c + h)
+    raw = (torch.randn(n, c, h, w, generator=g, device="cuda") * 3).to(torch.bfloat16)
+    raw = raw.contiguous(memory_format=torch.channels_last)
+    got, again = softmax_codes(raw), softmax_codes(raw)
+    want = torch.softmax(raw, 1)
+    torch.cuda.synchronize()
+    label = f"softmax_codes N={n} C={c} {h}x{w}"
+    if not (got.probs.is_contiguous(memory_format=torch.channels_last)
+            and got.codes.is_contiguous(memory_format=torch.channels_last)):
+        raise AssertionError(f"{label}: outputs not channels-last")
+    if not (torch.equal(got.probs, again.probs) and torch.equal(got.codes, again.codes)
+            and int(got.total) == int(again.total)):
+        raise AssertionError(f"{label}: two calls gave other bytes")
+    d = (got.probs.float() - want.float()).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(got.probs.float().abs(), want.float().abs())
+                                            .clamp(min=2.0**-126))) - 7)
+    if (d > ulp).any():
+        raise AssertionError(f"{label}: {int((d > ulp).sum())} probabilities off by more than one bf16 ulp")
+    if not torch.equal(got.codes, quantize(got.probs)):
+        raise AssertionError(f"{label}: codes are not quantize of the probabilities")
+    if int(got.total) != int(got.codes.sum(dtype=torch.int64)):
+        raise AssertionError(f"{label}: total {int(got.total)} is not the codes' sum")
+    exact = (d == 0).double().mean().item()
+    print(f"check {label}: {exact:.6%} of probabilities equal torch.softmax's, the rest one bf16 ulp off; "
+          f"codes quantize's byte for byte; same bytes twice", flush=True)
+    return exact
+
+
+def phase_softmax_codes(card: str) -> dict:
+    """softmax_codes (ggen's segmentation head and its serving codes): held
+    to torch.softmax and quantize at the serving shape (N = 4096, 25
+    classes) and at edge shapes; timed against its bound, the unfused chain
+    the serving path ran (the softmax of the channels-last scores, quantize
+    over the permuted view, the int64 sum) and torch.softmax alone; its
+    launches counted on surreal-segm's serving path (4 a chunk) and
+    mug-depth's (none); two same-seed surreal-segm chunks byte for byte."""
+    from dcvgan_torch import prng
+    from dcvgan_torch.cli.serve import Sink, make_chunk_fn, quantize, serve
+    from dcvgan_torch.config import load_config
+    from dcvgan_torch.ops.softmax_codes import softmax_codes
+    from dcvgan_torch.train.step import DCVGAN
+
+    segm = load_config(ROOT / "configs" / "surreal-segm.yml")
+    c = segm.geometric_info.channel
+    exact = [check_softmax_codes(N_FRAMES, c, 64, 64)] + [check_softmax_codes(*s) for s in SOFTMAX_EDGE_CASES]
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    raw = (torch.randn(N_FRAMES, c, 64, 64, generator=g, device="cuda") * 3).to(torch.bfloat16)
+    raw = raw.contiguous(memory_format=torch.channels_last)
+
+    def plain():
+        q = quantize(torch.softmax(raw, 1).permute(0, 2, 3, 1))
+        return q, q.sum(dtype=torch.int64)
+
+    row = {"site": "ggen head (segmentation)", "N": N_FRAMES, "C": c,
+           "kernel_ms": cuda_ms(lambda: softmax_codes(raw)),
+           "library_ms": cuda_ms(lambda: torch.softmax(raw, 1)),
+           "plain_ms": cuda_ms(plain, runs=3),
+           "bound_ms": softmax_codes_bound(N_FRAMES, c, 64, 64) * 1e3, "bound_by": "bytes"}
+    row["of_bound"] = row["bound_ms"] / row["kernel_ms"]
+    print("time softmax_codes " + json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in row.items()})
+          + f" ({card})", flush=True)
+    del raw
+    torch.cuda.empty_cache()
+
+    counts = {}
+    for name, chunks in (("surreal-segm", 2), (FLAGSHIP, 2)):
+        cfg = load_config(ROOT / "configs" / f"{name}.yml")
+        gan = DCVGAN(cfg)
+        served = gan.init_state(cfg.seed).generators()
+        softmax_codes.launches = 0
+        stats = serve(gan, served, 256, 4, chunks, Sink("null", None, cfg.geometric_info.name, False), seed=0)
+        torch.cuda.synchronize()
+        counts[name] = softmax_codes.launches
+        want = 4 * (chunks + 1) if name == "surreal-segm" else 0  # serve()'s warm-up chunk is a chunk too
+        print(f"{name} serve: {counts[name]} softmax_codes launches for {chunks + 1} chunks of 4 rounds "
+              f"(warm-up included; expected {want}), {stats['value']} videos/s", flush=True)
+        if counts[name] != want:
+            raise AssertionError(f"{name}: expected {want} softmax_codes launches, counted {counts[name]}")
+        if name == "surreal-segm":
+            chunk_fn = make_chunk_fn(gan, 256, 4)
+            outs = [[t.cpu() for t in chunk_fn(served, prng.base_key(5, "cuda"))] for _ in range(2)]
+            if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                raise AssertionError("two surreal-segm chunks from one seed differ")
+            xg_u8, xc_u8 = outs[0][1], outs[0][2]
+            if int(outs[0][0]) != int(xg_u8.sum(dtype=torch.int64)) + int(xc_u8.sum(dtype=torch.int64)):
+                raise AssertionError("the surreal-segm chunk's checksum is not the sum of its codes")
+            print(f"two same-seed surreal-segm chunks (256 x 4 videos): equal byte for byte, checksum "
+                  f"{int(outs[0][0])} = the sum of the geometry and colour codes", flush=True)
+            del outs, xg_u8, xc_u8
+        del gan, served
+        torch.cuda.empty_cache()
+    return {"name": "softmax_codes", "source": "dcvgan_torch/csrc/softmax_codes.cu", "replaces": None,
+            "min_exact_share": min(exact), **row, "launches": counts}
 
 
 F32_SERVE_BATCH, F32_SERVE_ITERS, F32_SERVE_CHUNKS = 256, 2, 4
@@ -3610,9 +3739,13 @@ def main() -> int:
     if sys.argv[1:2] == ["--onehot-conv"]:  # that phase alone
         print(json.dumps({"onehot_conv": phase_onehot_conv(card)}))
         return 0
+    if sys.argv[1:2] == ["--softmax-codes"]:  # that phase alone
+        print(json.dumps({"softmax_codes": phase_softmax_codes(card)}))
+        return 0
     entry = phase_kernels()
     up_entry = phase_fused_up(card)
     onehot_entry = phase_onehot_conv(card)
+    softmax_entry = phase_softmax_codes(card)
     dequant_entry = phase_dequant()
     # each kernel's launches on the serving main path, counted from 0
     entry["launches"], up_entry["serve_launches"] = phase_slice(card)
@@ -3669,7 +3802,7 @@ def main() -> int:
                                evaluation["fused_err"], inference["fused_err"], served["fused_err"],
                                parallel["fused_err"], timed["fused_err"], h2h["fused_err"], tools["fused_err"])
 
-    print(json.dumps({"kernels": [entry, dequant_entry, up_entry, onehot_entry]}))
+    print(json.dumps({"kernels": [entry, dequant_entry, up_entry, onehot_entry, softmax_entry]}))
     print(card_line())
     print(json.dumps({
         "ok": True,

@@ -2,7 +2,9 @@
 front end.
 
 Counterpart of ``dcvgan_tpu/cli/serve.py``. Each chunk runs ``iters``
-sampling rounds (ggen + cgen) and quantizes to uint8 on the device; at most
+sampling rounds (ggen + cgen) and quantizes to uint8 on the device (a
+segmentation geometry's codes come from ggen's fused softmax head, see
+``make_chunk_fn``); at most
 ``queue_depth`` chunks are in flight, and the host drains chunk k while the
 device generates chunk k+1. A chunk's outputs are copied to pinned host
 memory on a side CUDA stream that waits on an event recorded after the
@@ -101,17 +103,13 @@ from dcvgan_torch import prng
 from dcvgan_torch.cli.infer import load_run
 from dcvgan_torch.config import load_config
 from dcvgan_torch.io.video import write_videos_parallel
+from dcvgan_torch.models.ggen import codes_of
+from dcvgan_torch.ops.softmax_codes import quantize
 from dcvgan_torch.train.step import DCVGAN
 from dcvgan_torch.train.state import GeneratorState
 from dcvgan_torch.utils import trace
 from dcvgan_torch.utils.device import resolve_device
 from dcvgan_torch.utils.video_np import geometric_info_in_color_format
-
-
-def quantize(x: torch.Tensor) -> torch.Tensor:
-    """[-1, 1] -> uint8 as the JAX server computes it: clip, +1, *127.5 in
-    ``x.dtype`` (bf16 arithmetic rounds in bf16), then a truncating cast."""
-    return ((x.clamp(-1.0, 1.0) + 1.0) * 127.5).to(torch.uint8)
 
 
 def place_replicas(state: GeneratorState, mesh: Sequence) -> List[GeneratorState]:
@@ -136,7 +134,12 @@ def make_chunk_fn(gan: DCVGAN, batchsize: int, iters: int, mesh: Optional[Sequen
     ``chunk_fn(state, gen)`` returns ``(checksum, xg_u8, xc_u8)``: the videos
     are ``(iters, B, T, H, W, C)`` uint8 and the checksum is an int64 sum of
     every quantized pixel (take it mod 2**32). Round i draws from
-    ``prng.for_step(gen, i)``.
+    ``prng.for_step(gen, i)``. The geometry codes are made every round,
+    whether or not the sink takes them: a segmentation ggen whose decoder
+    runs fused hands them and their sum on with its videos
+    (``models.ggen.codes_of``: one ``softmax_codes`` launch wrote the
+    probabilities and their codes); otherwise, and on the ``mesh`` path,
+    whose rows come back as copies, :func:`quantize` makes them here.
 
     With ``mesh`` (a list of N devices) ``state`` is ``place_replicas``'s
     list: round i's latents are drawn on ``gan``'s device, replica r samples
@@ -166,10 +169,16 @@ def make_chunk_fn(gan: DCVGAN, batchsize: int, iters: int, mesh: Optional[Sequen
             xgs, xcs = [], []
             for i in range(iters):
                 xg, xc = sample(state, prng.for_step(gen, i))
-                xg_u8, xc_u8 = quantize(xg), quantize(xc)
-                total += xc_u8.sum(dtype=torch.int64) + xg_u8.sum(dtype=torch.int64)
+                codes = codes_of(xg)
+                if codes is None:  # a tanh head, or rows assembled from replicas
+                    xg_u8, xc_u8 = quantize(xg), quantize(xc)
+                    total += xc_u8.sum(dtype=torch.int64) + xg_u8.sum(dtype=torch.int64)
+                else:
+                    xg_u8, xc_u8 = codes.u8, quantize(xc)
+                    total += xc_u8.sum(dtype=torch.int64) + codes.total
                 xgs.append(xg_u8)
                 xcs.append(xc_u8)
+                del xg, xc, codes  # the next round's sampling does not hold this round's videos
             return total, torch.stack(xgs), torch.stack(xcs)
 
     return chunk_fn

@@ -18,8 +18,13 @@ In eval mode in bfloat16 on CUDA under BatchNorm the decoder runs on
 p0 on 1x1) stays on cuDNN and writes its raw output, and each strided stage
 applies the previous stage's BatchNorm (folded into a per-channel affine)
 and ReLU as it loads its input, so no BatchNorm or ReLU runs as an op of its
-own; the head follows the last stage. Float32, CPU, train-mode and
-GroupNorm forwards run the modules in order.
+own; the head follows the last stage. There a softmax head is one launch of
+:func:`softmax_codes` (``ops/softmax_codes.py``, inside the span
+``ggen.softmax_codes``), which also writes the probabilities' uint8 serving
+codes and their int64 sum: :meth:`GeometricVideoGenerator.forward` hands
+them on with the videos (:func:`codes_of`), so ``cli.serve`` does not
+quantise the geometry video again. A tanh head keeps its module. Float32,
+CPU, train-mode and GroupNorm forwards run the modules in order.
 
 The state-dict naming is the reference's: ``recurrent.*`` (an
 ``nn.GRUCell``'s four tensors) and ``main.{3i}`` / ``main.{3i+1}`` for the
@@ -29,6 +34,7 @@ i-th transposed conv and its BatchNorm, ``main.{3n}`` for the last conv.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -46,6 +52,23 @@ from dcvgan_torch.models.layers import (
     up_conv,
 )
 from dcvgan_torch.ops.fused_up import fused_norm_act_up_conv
+from dcvgan_torch.ops.softmax_codes import SoftmaxCodes, softmax_codes
+from dcvgan_torch.utils import trace
+
+
+class Codes(NamedTuple):
+    """A geometry video's uint8 serving codes, ``quantize(videos)`` in the
+    videos' layout, and their int64 sum (a scalar tensor)."""
+
+    u8: torch.Tensor
+    total: torch.Tensor
+
+
+def codes_of(videos: torch.Tensor) -> Optional[Codes]:
+    """The codes :meth:`GeometricVideoGenerator.forward` made with
+    ``videos`` (a fused softmax head), or None. A tensor made from the
+    videos (a slice, a copy, a concatenation) carries none."""
+    return getattr(videos, "_codes", None)
 
 
 class GRUCell(nn.Module):
@@ -208,26 +231,41 @@ class GeometricVideoGenerator(nn.Module):
     ) -> torch.Tensor:
         """Decode per-frame latents ``(N, dim_z)`` to frames
         ``(N, image_size, image_size, channel)``."""
+        return self._decode(z, train, update_stats)[0]
+
+    def _decode(
+        self, z: torch.Tensor, train: bool, update_stats: bool
+    ) -> Tuple[torch.Tensor, Optional[Codes]]:
+        """:meth:`decode`'s frames and, from a fused softmax head, their
+        codes ``(N, H, W, channel)`` (else None)."""
         x = z.to(self.compute_dtype).reshape(z.shape[0], -1, 1, 1)
         x = x.contiguous(memory_format=torch.channels_last)
         if decodes_fused(x, train, self.norm):
-            return self._decode_fused(x).permute(0, 2, 3, 1)
+            out = self._decode_fused(x)
+            if isinstance(out, SoftmaxCodes):
+                return out.probs.permute(0, 2, 3, 1), Codes(out.codes.permute(0, 2, 3, 1), out.total)
+            return out.permute(0, 2, 3, 1), None
         for layer in self.main:
             if isinstance(layer, Norm):
                 x = layer(x, train, update_stats)
             else:
                 x = layer(x)
-        return x.permute(0, 2, 3, 1)
+        return x.permute(0, 2, 3, 1), None
 
-    def _decode_fused(self, x: torch.Tensor) -> torch.Tensor:
+    def _decode_fused(self, x: torch.Tensor) -> Union[torch.Tensor, SoftmaxCodes]:
         """The eval-mode decoder on the fused transposed conv: latents
-        ``(N, dim_z, 1, 1)`` to the head's output ``(N, channel, H, W)``."""
+        ``(N, dim_z, 1, 1)`` to the head's output ``(N, channel, H, W)``; a
+        softmax head gives :class:`SoftmaxCodes` (the probabilities, their
+        codes and sum)."""
         convs = [m for m in self.main if isinstance(m, nn.ConvTranspose2d)]
         norms = [m for m in self.main if isinstance(m, Norm)]
         raw = convs[0](x).contiguous(memory_format=torch.channels_last)
         for conv, norm in zip(convs[1:], norms):
             scale, shift = fold_batch_norm(norm)
             raw = fused_norm_act_up_conv(raw, scale, shift, conv.weight.to(x.dtype))
+        if isinstance(self.main[-1], nn.Softmax):
+            with trace.span("ggen.softmax_codes"):
+                return softmax_codes(raw)
         return self.main[-1](raw)
 
     def forward(
@@ -238,6 +276,11 @@ class GeometricVideoGenerator(nn.Module):
         train: bool = False,
         update_stats: bool = True,
     ) -> torch.Tensor:
-        """Geometry videos ``(B, T, H, W, C)`` from explicit latents."""
+        """Geometry videos ``(B, T, H, W, C)`` from explicit latents; from a
+        fused softmax head they carry their :class:`Codes` (:func:`codes_of`)."""
         z = self.latents(z_content, e, h0)
-        return unfold_time(self.decode(fold_time(z), train, update_stats), z.shape[0])
+        frames, codes = self._decode(fold_time(z), train, update_stats)
+        videos = unfold_time(frames, z.shape[0])
+        if codes is not None:
+            videos._codes = Codes(unfold_time(codes.u8, z.shape[0]), codes.total)
+        return videos

@@ -35,8 +35,9 @@ NVCC_FLAGS = (
 )
 
 # sources that only some configurations run: a run that never asks for
-# their library never builds it (segmentation's one-hot input conv)
-ON_DEMAND = frozenset({"onehot_conv"})
+# their library never builds it (segmentation's one-hot input conv and
+# softmax head)
+ON_DEMAND = frozenset({"onehot_conv", "softmax_codes"})
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -4,18 +4,26 @@ Weights come from a randomised flax tree through ``from_jax``; latents, ``e``
 and ``h0`` are drawn with numpy and injected on both sides.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dcvgan_torch.cli.serve import quantize
 from dcvgan_torch.compat.from_jax import ggen_from_jax
+from dcvgan_torch.models import ggen as ggen_mod
+from dcvgan_torch.models import layers
 from dcvgan_torch.models.ggen import GeometricVideoGenerator as PortGGen
+from dcvgan_torch.models.ggen import codes_of
 from dcvgan_torch.models.layers import cast_for_compute
+from dcvgan_torch.ops import softmax_codes as sc
 from dcvgan_tpu.models import GeometricVideoGenerator as JaxGGen
 from torch_port_util import ATOL_F32, NGF, randomize_tree, within
 from torch_port_util import one_intra_op_thread  # noqa: F401
+from torch_port_util import tracing  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
@@ -118,3 +126,67 @@ def test_train_mode_raises():
     assert tr.shape == ev.shape and not torch.allclose(tr, ev)
     with pytest.raises(TypeError):
         pm.decode(z, training=True)
+
+
+# ---- the softmax head on softmax_codes (the decoder taken as fused on the
+# CPU, where the op runs its plain version)
+
+
+@pytest.fixture
+def head_on_cpu(monkeypatch):
+    """ggen's choice with a CPU tensor taken as on CUDA while ``.on``;
+    ``.calls`` the shapes ``softmax_codes`` was called on."""
+    state = types.SimpleNamespace(on=True, calls=[])
+
+    def decodes_fused(x, train, norm):
+        return layers.decodes_fused(types.SimpleNamespace(dtype=x.dtype, is_cuda=state.on), train, norm)
+
+    def counted(raw):
+        state.calls.append(tuple(raw.shape))
+        return sc.softmax_codes(raw)
+
+    monkeypatch.setattr(ggen_mod, "decodes_fused", decodes_fused)
+    monkeypatch.setattr(ggen_mod, "softmax_codes", counted)
+    return state
+
+
+def _eval_ggen(geometric_info, channel, dtype=torch.bfloat16):
+    pm = PortGGen(dim_z_content=DZC, dim_z_motion=DZM, channel=channel, geometric_info=geometric_info,
+                  ngf=NGF, video_length=T)
+    pm.reset_parameters(torch.Generator().manual_seed(channel))
+    return cast_for_compute(pm, torch.device("cpu"), dtype).eval()
+
+
+def _forward(pm, seed):
+    zc = torch.from_numpy(np.random.default_rng(seed).normal(size=(B, DZC)).astype(np.float32))
+    e, h0, _ = _latents(seed)
+    with torch.inference_mode():
+        return pm(zc, torch.from_numpy(e), torch.from_numpy(h0))
+
+
+@pytest.mark.parametrize("channel", [5, 25])
+def test_fused_softmax_head_hands_on_its_codes(head_on_cpu, tracing, channel):
+    pm = _eval_ggen("segmentation", channel)
+    at = tracing.mark()
+    videos = _forward(pm, seed=channel)
+    assert head_on_cpu.calls == [(B * T, channel, 64, 64)]
+    assert [r.name for r in tracing.records(at)] == ["ggen.softmax_codes"]
+    codes = codes_of(videos)
+    assert videos.shape == codes.u8.shape == (B, T, 64, 64, channel) and codes.u8.dtype == torch.uint8
+    assert torch.equal(codes.u8, quantize(videos))
+    assert int(codes.total) == int(codes.u8.sum(dtype=torch.int64))
+    head_on_cpu.on = False
+    assert torch.equal(_forward(pm, seed=channel), videos)  # the modules' softmax, the same bytes
+    assert codes_of(videos[:1]) is None and codes_of(videos.clone()) is None
+
+
+@pytest.mark.parametrize("case", ["depth", "optical-flow", "unfused", "float32"])
+def test_no_codes_off_the_fused_softmax_head(head_on_cpu, case):
+    geometric_info, channel = {"depth": ("depth", 1), "optical-flow": ("optical-flow", 2)}.get(
+        case, ("segmentation", 5))
+    head_on_cpu.on = case != "unfused"
+    pm = _eval_ggen(geometric_info, channel, torch.float32 if case == "float32" else torch.bfloat16)
+    before = sc.softmax_codes.launches
+    videos = _forward(pm, seed=1)
+    assert head_on_cpu.calls == [] and codes_of(videos) is None
+    assert sc.softmax_codes.launches == before and videos.shape == (B, T, 64, 64, channel)

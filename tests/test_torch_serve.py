@@ -1,5 +1,7 @@
 """The port's serving loop: quantize, checksum, seeded replay, CLI, device rule."""
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -7,9 +9,13 @@ import pytest
 import torch
 import yaml
 
+from dcvgan_torch import prng
 from dcvgan_torch.cli import serve as port_serve
-from dcvgan_torch.cli.serve import GenerationServer, Sink, quantize, serve
+from dcvgan_torch.cli.serve import GenerationServer, Sink, make_chunk_fn, quantize, serve
 from dcvgan_torch.config import ExperimentConfig
+from dcvgan_torch.models import ggen as ggen_mod
+from dcvgan_torch.models import layers
+from dcvgan_torch.ops import softmax_codes as sc
 from dcvgan_torch.train.step import DCVGAN
 from torch_port_util import NGF
 from torch_port_util import one_intra_op_thread  # noqa: F401
@@ -62,8 +68,8 @@ def test_quantize_is_byte_identical_to_jax(dtype):
     assert (got != rounded).any()
 
 
-def _gan():
-    cfg = ExperimentConfig.from_dict(TINY)
+def _gan(geometric_info=None):
+    cfg = ExperimentConfig.from_dict({**TINY, "geometric_info": geometric_info or TINY["geometric_info"]})
     cfg.validate()
     gan = DCVGAN(cfg, device="cpu")
     return gan, gan.init_state(0)
@@ -84,6 +90,43 @@ def test_serve_replays_and_checksums_every_pixel(tmp_path):
     assert geo[0].shape == (2, 2, T, 64, 64, 1) and geo[0].dtype == np.uint8
     total = sum(int(x.sum(dtype=np.int64)) for x in color + geo)
     assert total % 2**32 == a["checksum"]
+
+
+@pytest.fixture
+def head_on_cpu(monkeypatch):
+    """ggen's decoder taken as fused on the CPU (the ops run their plain
+    versions); ``.calls`` counts ``softmax_codes``' calls."""
+    state = types.SimpleNamespace(calls=0)
+
+    def decodes_fused(x, train, norm):
+        return layers.decodes_fused(types.SimpleNamespace(dtype=x.dtype, is_cuda=True), train, norm)
+
+    def counted(raw):
+        state.calls += 1
+        return sc.softmax_codes(raw)
+
+    monkeypatch.setattr(ggen_mod, "decodes_fused", decodes_fused)
+    monkeypatch.setattr(ggen_mod, "softmax_codes", counted)
+    return state
+
+
+@pytest.mark.parametrize("geometry", [{"name": "segmentation", "channel": 25}, {"name": "depth", "channel": 1}],
+                         ids=["segmentation", "depth"])
+def test_chunk_takes_the_geometry_codes_of_the_softmax_head(head_on_cpu, geometry):
+    """A chunk's geometry codes are quantize of each round's geometry, and
+    its checksum counts them and the colour codes, whether they come from
+    the fused softmax head (segmentation: one call a round) or from
+    quantize (a tanh head: no call, no launch)."""
+    gan, state = _gan(geometry)
+    before = sc.softmax_codes.launches
+    total, xg_u8, xc_u8 = make_chunk_fn(gan, 2, 3)(state, prng.base_key(4))
+    assert head_on_cpu.calls == (3 if geometry["name"] == "segmentation" else 0)
+    assert sc.softmax_codes.launches == before
+    assert xg_u8.shape == (3, 2, T, 64, 64, geometry["channel"]) and xg_u8.dtype == torch.uint8
+    assert int(total) == int(xg_u8.sum(dtype=torch.int64)) + int(xc_u8.sum(dtype=torch.int64))
+    for i in range(3):
+        xg, xc = gan.sample_videos(state, prng.for_step(prng.base_key(4), i), 2)
+        assert torch.equal(xg_u8[i], quantize(xg)) and torch.equal(xc_u8[i], quantize(xc))
 
 
 def test_serve_records_each_chunks_spans(tracing):

@@ -12,13 +12,13 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
    against its plain PyTorch version on the card at the main paths' shapes
    and at edge shapes, and time kernel, plain version, one library call
    where there is one, and the bound; the bf16 ``fused_norm_act_conv`` is
-   timed on its TMA route and on the mma.sync kernel of the other route in
-   turns, the f32 one on its tf32x3 route (the TMA kernel on
-   error-compensated TF32) and on the FMA kernel of the other f32 route in
-   turns, beside the bound of three TF32 products on the tensor cores and
-   the FFMA floor, each route asserted at the flagship sites and at edge
-   shapes (slope 0.2 and 0.01 with shift + 1), a train step's two
-   ``dequant`` batches in one launch and launched per tensor in turns;
+   timed on its TMA route, the f32 one on its tf32x3 route (the TMA kernel
+   on error-compensated TF32) beside the bound of three TF32 products on the
+   tensor cores and the FFMA floor, each route asserted at the flagship
+   sites and at edge shapes (slope 0.2 and 0.01 with shift + 1), and a
+   ``ValueError`` with no launch at a shape the kernel cannot take; a train
+   step's two ``dequant`` batches in one launch and launched per tensor in
+   turns;
 3b. ``fused_norm_act_up_conv`` (the decoders' fused transposed convs):
    held to its plain version at the serving path's ten sites at N = 4096
    and at edge shapes (two launches each, the same bytes), timed at each
@@ -280,24 +280,25 @@ def site_bound(n: int, h: int, c: int, cout: int, dtype: torch.dtype, xn: bool, 
 
 
 # (label, N, H, W, C, Cout, route): shapes at the TMA route's edges, and one
-# it cannot take; the route each must take
+# it cannot take; the route each must take (None: no plan, the op raises
+# ValueError and counts no launch)
 EDGE_CASES = [
     ("partial last tile, odd tile count", 3, 16, 16, 128, 256, "tma"),
     ("down5's 2x2 input, 3 tiles", 300, 2, 2, 256, 256, "tma"),
     ("OW < 8, W != H", 5, 4, 12, 64, 64, "tma"),
     ("C = 8, one zero-filled half chunk", 7, 6, 6, 8, 16, "tma"),
     ("OH*OW = 15, tiles across images", 40, 6, 10, 64, 64, "tma"),
-    ("C = 12: the mma.sync route", 3, 8, 8, 12, 8, "mma_sync"),
+    ("C = 12, Cout = 8: no plan", 3, 8, 8, 12, 8, None),
 ]
-# the same for f32: the TMA kernel's tf32x3 route (32 channels a stage) and
-# the FMA kernel of the shapes it cannot take
+# the same for f32: the TMA kernel's tf32x3 route (32 channels a stage), and
+# a shape it cannot take
 F32_EDGE_CASES = [
     ("partial last tile, odd tile count", 3, 16, 16, 128, 256, "tf32x3"),
     ("down5's 2x2 input, 3 tiles", 300, 2, 2, 256, 256, "tf32x3"),
     ("OW < 8, W != H", 5, 4, 12, 64, 64, "tf32x3"),
     ("C = 8 (debug-mock-depth's ngf), a quarter chunk", 7, 6, 6, 8, 16, "tf32x3"),
     ("OH*OW = 15, tiles across images", 40, 6, 10, 64, 64, "tf32x3"),
-    ("Cout = 8: the FMA route", 3, 8, 8, 12, 8, "f32"),
+    ("Cout = 8: no plan", 3, 8, 8, 12, 8, None),
 ]
 EDGE_CASES_BY_DTYPE = {torch.bfloat16: EDGE_CASES, torch.float32: F32_EDGE_CASES}
 
@@ -382,8 +383,7 @@ def check_sites(n: int, path: str, sites: list) -> float:
 def phase_kernels() -> dict:
     import torch.nn.functional as F
 
-    from dcvgan_torch.ops.fused_block import (
-        Plan, fused_norm_act_conv, launch, plan_for, reference_norm_act_conv)
+    from dcvgan_torch.ops.fused_block import fused_norm_act_conv, launch, plan_for, reference_norm_act_conv
 
     sites_64 = flagship_sites()
     errs = [check_sites(N_FRAMES, "serve", sites_64)]
@@ -396,14 +396,33 @@ def phase_kernels() -> dict:
         print(f"check slope 0.01 shift+1 {str(dtype)[6:]}: max|diff| {e:.3e}", flush=True)
     for dtype, cases in EDGE_CASES_BY_DTYPE.items():
         for label, n, h, w, c, cout, want_route in cases:
-            x, _, _, wt = kernel_inputs(n, h, c, cout, dtype, seed=0, w=w)
-            route = plan_for(x, wt, torch.empty(n, cout, h // 2, w // 2, dtype=x.dtype, device="cuda",
-                                                memory_format=torch.channels_last)).route
+            x, scale, shift, wt = kernel_inputs(n, h, c, cout, dtype, seed=0, w=w)
+            p = plan_for(x, wt, torch.empty(n, cout, h // 2, w // 2, dtype=x.dtype, device="cuda",
+                                            memory_format=torch.channels_last))
+            route = p and p.route
             if route != want_route:
                 raise AssertionError(f"edge case {label!r} takes the {route} route, not {want_route}")
+            if route is None:
+                before = fused_norm_act_conv.launches
+                try:
+                    fused_norm_act_conv(x, scale, shift, wt, 0.2)
+                except ValueError as err:
+                    if "no plan" not in str(err):
+                        raise
+                else:
+                    raise AssertionError(f"edge case {label!r} has no plan and did not raise")
+                if fused_norm_act_conv.launches != before:
+                    raise AssertionError(f"edge case {label!r}: a launch without a plan")
+                print(f"check edge {str(dtype)[6:]} {label} (N={n} {h}x{w} C={c} Cout={cout}): no plan, "
+                      f"ValueError, 0 launches", flush=True)
+                continue
             for slope, shift_offset in ((0.2, 0.5), (0.01, 1.0)):
+                before = fused_norm_act_conv.launches
                 e = check_kernel(fused_norm_act_conv, reference_norm_act_conv, n, h, c, cout, dtype,
                                  True, slope=slope, shift_offset=shift_offset, width=w)
+                if fused_norm_act_conv.launches != before + 1:
+                    raise AssertionError(f"edge case {label!r}: {fused_norm_act_conv.launches - before} "
+                                         f"launches on route {route}")
                 errs.append(e)
                 print(f"check edge {str(dtype)[6:]} {label} (N={n} {h}x{w} C={c} Cout={cout}, route "
                       f"{route}, slope {slope}): max|diff| {e:.3e}", flush=True)
@@ -416,31 +435,16 @@ def phase_kernels() -> dict:
             reference_norm_act_conv(x, scale, shift, w, 0.2, xn_out=xn)  # for the library call
             bound, bound_by, flops, nbytes = site_bound(N_FRAMES, h, c, cout, dtype, True)
             row = {"site": name, "dtype": str(dtype)[6:], "x": [N_FRAMES, h, h, c], "cout": cout}
-            if dtype == torch.bfloat16:
-                # the TMA route against the mma.sync kernel, in turns: old, new, new, old
-                out = torch.empty(N_FRAMES, cout, h // 2, h // 2, dtype=dtype, device="cuda",
-                                  memory_format=torch.channels_last)
-                plan = plan_for(x, w, out, xn)
-                if plan.route != "tma":
-                    raise AssertionError(f"{name} does not take the TMA route: {plan}")
-                old, new = Plan("mma_sync"), plan
-                turns = [cuda_ms(lambda p=p: launch(p, x, scale, shift, w, out, 0.2, xn))
-                         for p in (old, new, new, old)]
-                row.update(kernel_ms=(turns[1] + turns[2]) / 2, old_ms=(turns[0] + turns[3]) / 2,
-                           turns_ms=turns, plan={k: v for k, v in vars(plan).items() if k != "route"})
-            else:
-                # the tf32x3 route against the FMA kernel, in turns: old, new, new, old
-                out = torch.empty(N_FRAMES, cout, h // 2, h // 2, dtype=dtype, device="cuda",
-                                  memory_format=torch.channels_last)
-                plan = plan_for(x, w, out, xn)
-                if plan.route != "tf32x3":
-                    raise AssertionError(f"{name} does not take the tf32x3 route in f32: {plan}")
-                old, new = Plan("f32"), plan
-                turns = [cuda_ms(lambda p=p: launch(p, x, scale, shift, w, out, 0.2, xn))
-                         for p in (old, new, new, old)]
-                row.update(kernel_ms=(turns[1] + turns[2]) / 2, old_ms=(turns[0] + turns[3]) / 2,
-                           turns_ms=turns, plan={k: v for k, v in vars(plan).items() if k != "route"})
-                # the FMA kernel's floor (the CUDA cores' FFMA peak) beside the route's own
+            out = torch.empty(N_FRAMES, cout, h // 2, h // 2, dtype=dtype, device="cuda",
+                              memory_format=torch.channels_last)
+            plan = plan_for(x, w, out, xn)
+            want_route = "tma" if dtype == torch.bfloat16 else "tf32x3"
+            if plan is None or plan.route != want_route:
+                raise AssertionError(f"{name} does not take the {want_route} route: {plan}")
+            row.update(kernel_ms=cuda_ms(lambda: launch(plan, x, scale, shift, w, out, 0.2, xn)),
+                       plan={k: v for k, v in vars(plan).items() if k != "route"})
+            if dtype == torch.float32:
+                # the CUDA cores' FFMA floor beside the route's own
                 row["ffma_bound_ms"] = bound
                 bound, bound_by, _, _ = site_bound(N_FRAMES, h, c, cout, dtype, True, tf32x3=True)
             row.update(
@@ -475,26 +479,21 @@ def phase_kernels() -> dict:
         "bound_ms": sum(r["bound_ms"] for r in main_path),
         "bound_by": max(by_kind, key=by_kind.get),
         "library_ms": sum(r["library_ms"] for r in main_path),
-        # the mma.sync kernel (the route of shapes TMA cannot take) at the same sites
-        "old_ms": sum(r["old_ms"] for r in main_path),
         # the f32 forward's five launches (trainer.precision: float32) on the
-        # tf32x3 route, the FMA kernel of the shapes it cannot take, the plain
-        # version and cuDNN's f32 conv with TF32 off at the same sites; the
-        # bound at the tensor cores' TF32 rate for three products, and at the
-        # CUDA cores' FFMA rate for one
+        # tf32x3 route, the plain version and cuDNN's f32 conv with TF32 off
+        # at the same sites; the bound at the tensor cores' TF32 rate for
+        # three products, and at the CUDA cores' FFMA rate for one
         "f32_ms": sum(r["kernel_ms"] for r in f32_path),
-        "f32_old_ms": sum(r["old_ms"] for r in f32_path),
         "f32_plain_ms": sum(r["plain_ms"] for r in f32_path),
         "f32_library_ms": sum(r["library_ms"] for r in f32_path),
         "f32_bound_ms": sum(r["bound_ms"] for r in f32_path),
         "f32_bound_by": max(f32_by_kind, key=f32_by_kind.get),
         "f32_ffma_bound_ms": sum(r["ffma_bound_ms"] for r in f32_path),
     }
-    print(f"fused_norm_act_conv bf16, five sites: TMA route {entry['ms']:.4f} ms, mma.sync kernel "
-          f"{entry['old_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms, cuDNN {entry['library_ms']:.4f} ms",
-          flush=True)
-    print(f"fused_norm_act_conv f32, five sites: tf32x3 route {entry['f32_ms']:.4f} ms, FMA kernel "
-          f"{entry['f32_old_ms']:.4f} ms, plain {entry['f32_plain_ms']:.4f} ms, cuDNN f32 (TF32 off) "
+    print(f"fused_norm_act_conv bf16, five sites: TMA route {entry['ms']:.4f} ms, bound "
+          f"{entry['bound_ms']:.4f} ms, cuDNN {entry['library_ms']:.4f} ms", flush=True)
+    print(f"fused_norm_act_conv f32, five sites: tf32x3 route {entry['f32_ms']:.4f} ms, plain "
+          f"{entry['f32_plain_ms']:.4f} ms, cuDNN f32 (TF32 off) "
           f"{entry['f32_library_ms']:.4f} ms, bound {entry['f32_bound_ms']:.4f} ms (three TF32 products), "
           f"FFMA bound {entry['f32_ffma_bound_ms']:.4f} ms", flush=True)
     return entry
@@ -1114,7 +1113,7 @@ def phase_serve_f32(card: str) -> dict:
 
 # kernel-name fragments -> category, for the profile of one sampling round
 KERNEL_KINDS = [
-    ("fused_norm_act_conv", ("fused_tma_kernel", "fused_bf16_kernel", "fused_f32_kernel")),
+    ("fused_norm_act_conv", ("fused_tma_kernel",)),
     ("dequantize_video", ("dequant_kernel",)),
     ("adam (foreach)", ("multi_tensor", "foreach", "Foreach")),
     ("conv / conv-transpose (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad", "fprop")),

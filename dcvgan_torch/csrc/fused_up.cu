@@ -30,15 +30,16 @@
 // (Cout, taps, K) row-major matrix (K-major for the tensor cores, each of x's
 // and the skip's channel runs padded to 64).
 //
-// The design is fused_block.cu's TMA route (its notes say why): a persistent
-// kernel of 512 threads walking a host-planned table of units; one producer
-// thread streams the staged input rows of a unit (64 channels a stage, x's
-// chunks then the skip's, by two tensor maps) and the weights by TMA into
-// mbarrier rings; seven transform warps apply the affine + ReLU in place to
-// x's chunks (the skip's need none); two consumer warpgroups gather A with
-// ldmatrix (padding taps point at a zero row) and run wgmma m64nBNk16 with B
-// from the swizzled weight stage, then store the tile's rows at their output
-// pixels, only the real channels (Cout of 1, 2 or 3 runs on 16-wide tiles).
+// The design is fused_block.cu's kernel (its notes say why), on the Hopper
+// layer both take from hopper.cuh: a persistent kernel of 512 threads walking
+// a host-planned table of units; one producer thread streams the staged input
+// rows of a unit (64 channels a stage, x's chunks then the skip's, by two
+// tensor maps) and the weights by TMA into mbarrier rings; seven transform
+// warps apply the affine + ReLU in place to x's chunks (the skip's need
+// none); two consumer warpgroups gather A with ldmatrix (padding taps point
+// at a zero row) and run wgmma m64nBNk16 with B from the swizzled weight
+// stage, then store the tile's rows at their output pixels, only the real
+// channels (Cout of 1, 2 or 3 runs on 16-wide tiles).
 // A unit is 128 or 256 input positions (one or two m-blocks of 64 rows a
 // warpgroup) x one or all four output phases x up to 128 output channels;
 // the host picks the shape per call (ops/fused_up.py: plan).
@@ -67,8 +68,11 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int kBM = 128;         // input positions per tile and m-block a warpgroup (64 rows each)
@@ -145,153 +149,6 @@ int max_region_rows(int n, int h, int w, int tile_m) {
   for (long long t = 0; t < tiles && t < period; ++t) rows = rows_of(t) > rows ? rows_of(t) : rows;
   return rows;
 }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// TMA's and wgmma's 128-byte swizzle, on byte offsets from a 1024-byte
-// aligned base: 16-byte granule bits [4, 7) ^= bits [7, 10).
-__device__ __forceinline__ uint32_t swz(uint32_t o) { return o ^ ((o >> 3) & 0x70u); }
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\nselp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity), "r"(0x989680u)
-      : "memory");
-  return done != 0;
-}
-__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-// A phase that never completes is a schedule fault: trap (the launch then
-// fails and the wrapper raises) rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!mbar_try_wait(bar, parity))
-    if (global_ns() - t0 > 2000000000ull) __trap();
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major, swizzled tile: start address,
-// leading offset (unused for swizzled K-major), 8-row stride, layout type.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint64_t layout_type, uint32_t row8_bytes) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
-         (static_cast<uint64_t>(row8_bytes >> 4) << 32) | (layout_type << 62);
-}
-
-#define F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-
-// acc(64 x N, f32) += A(64 x 16, bf16 registers) * B(16 x N, bf16 K-major in shared memory)
-template <int N>
-__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-      : F4(0), F4(4)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : F4(0), F4(4), F4(8), F4(12)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : F4(0), F4(4), F4(8), F4(12), F4(16), F4(20), F4(24), F4(28)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
-      "{%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
-      : F4(0), F4(4), F4(8), F4(12), F4(16), F4(20), F4(24), F4(28), F4(32), F4(36), F4(40), F4(44)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : F4(0), F4(4), F4(8), F4(12), F4(16), F4(20), F4(24), F4(28),
-        F4(32), F4(36), F4(40), F4(44), F4(48), F4(52), F4(56), F4(60)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-#undef F4
 
 // The prologue on one 16-byte granule of x (8 channels), in place:
 // relu(v * scale + shift) with a separate multiply and add, as the plain
@@ -594,7 +451,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             wgmma_fence();
             if constexpr (P == 1) {
 #pragma unroll
-              for (int kk = 0; kk < 4; ++kk) wgmma_rs<BN>(acc[mb], fa[kk], desc1 + 2 * kk);
+              for (int kk = 0; kk < 4; ++kk) wgmma_rs<BN>(acc[mb], fa[kk], desc1 + 2 * kk, 1);
             } else {
               // every (phase, tap) that reads offset (dy, dx): phase (py, px)
               // with tap (i, j) = (py - dy, px - dx) in {0, 1}^2, weight tap
@@ -609,7 +466,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                   const int wtap = (2 * i + 1 - py) * 4 + (2 * j + 1 - px);
                   const uint64_t desc = wdesc + static_cast<uint64_t>(wtap * desc_stage);
 #pragma unroll
-                  for (int kk = 0; kk < 4; ++kk) wgmma_rs<BN>(acc[mb * P + 2 * py + px], fa[kk], desc + 2 * kk);
+                  for (int kk = 0; kk < 4; ++kk) wgmma_rs<BN>(acc[mb * P + 2 * py + px], fa[kk], desc + 2 * kk, 1);
                 }
               }
             }
@@ -689,32 +546,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda; reach it through the runtime, no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A 3-D bf16 map, dims innermost first, strides of dims 1 and 2 in bytes.
-bool encode_3d(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[3], const cuuint64_t (&strides)[2],
-               const cuuint32_t (&box)[3]) {
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int S, int P, int MB, int BN>
 int launch(const CUtensorMap& tm_x, const CUtensorMap& tm_s, const CUtensorMap& tm_w, const Params& p, int grid,
            int smem, cudaStream_t s) {
@@ -790,19 +621,22 @@ int fused_up_conv(const void* x, const void* skip, const void* scale, const void
   if (resident && (w_stages != (chunks1 + chunks2) * (stride == 1 ? 9 : 4 * phases) || grid % group != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const cuuint64_t k_pad = static_cast<cuuint64_t>(kCK) * (chunks1 + chunks2);
+  const CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap tm_x, tm_s, tm_w;
   // x and skip as (C, W, N * H): a box is one chunk of channels of region_rows whole rows
   const cuuint64_t rows = static_cast<cuuint64_t>(n) * h;
   const cuuint32_t box[3] = {kCK, static_cast<cuuint32_t>(w_in), static_cast<cuuint32_t>(region_rows)};
-  if (!encode_3d(&tm_x, x, {cuuint64_t(c1), cuuint64_t(w_in), rows}, {cuuint64_t(c1) * 2, cuuint64_t(w_in) * c1 * 2}, box))
+  if (!encode_3d(&tm_x, type, x, {cuuint64_t(c1), cuuint64_t(w_in), rows},
+                 {cuuint64_t(c1) * 2, cuuint64_t(w_in) * c1 * 2}, box))
     return -4;
   tm_s = tm_x;  // unused without a skip
   if (c2 > 0 &&
-      !encode_3d(&tm_s, skip, {cuuint64_t(c2), cuuint64_t(w_in), rows}, {cuuint64_t(c2) * 2, cuuint64_t(w_in) * c2 * 2}, box))
+      !encode_3d(&tm_s, type, skip, {cuuint64_t(c2), cuuint64_t(w_in), rows},
+                 {cuuint64_t(c2) * 2, cuuint64_t(w_in) * c2 * 2}, box))
     return -4;
   // the packed weight as (K, taps, Cout): a box is one chunk of channels of one
   // tap for bn output channels; rows past Cout are the box's zero fill
-  if (!encode_3d(&tm_w, w_gemm, {k_pad, cuuint64_t(taps), cuuint64_t(cout)}, {k_pad * 2, taps * k_pad * 2},
+  if (!encode_3d(&tm_w, type, w_gemm, {k_pad, cuuint64_t(taps), cuuint64_t(cout)}, {k_pad * 2, taps * k_pad * 2},
                  {kCK, 1, static_cast<cuuint32_t>(bn)}))
     return -4;
   Params p;

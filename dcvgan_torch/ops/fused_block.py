@@ -11,22 +11,24 @@ padded tap contributes 0. With ``xn_out`` the activation is also written out,
 once per input pixel: the colour generator's down path keeps it as the U-Net
 skip (``models/cgen.py``).
 
-On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/fused_block.cu`` (replacing the Pallas ``_fused_kernel``) and counts
-the launch in ``fused_norm_act_conv.launches`` (and by route in
-``fused_norm_act_conv.routes``); on a CPU tensor it runs
-:func:`reference_norm_act_conv`, the plain version. There is no fallback
-from the one to the other.
+On a CUDA tensor the wrapper launches the hand-written TMA + wgmma kernel
+in ``csrc/fused_block.cu`` (replacing the Pallas ``_fused_kernel``) and
+counts the launch in ``fused_norm_act_conv.launches`` (and by route in
+``fused_norm_act_conv.routes``: ``tma`` for bf16, ``tf32x3`` for f32); on a
+CPU tensor it runs :func:`reference_norm_act_conv`, the plain version.
 
 The kernel's schedule is planned here, by shape, before the launch
-(:func:`plan`): the route (``tma`` for bf16 shapes the TMA kernel takes,
-``mma_sync`` for other bf16 shapes, ``tf32x3`` for f32 shapes the TMA
-kernel takes, ``f32`` for other f32 shapes), and for the two TMA routes the
-tile size, the ring depths, the grid, the shared memory and the table of
-tiles the kernel walks (:func:`tile_table`: each tile's pixels, channels,
-staged rows and live taps), which the wrapper copies to the card once per
-shape. The CUDA source checks the shared memory against its own layout and
-the staged rows against its own count of the rows a tile reads.
+(:func:`plan`): the tile size, the ring depths, the grid, the shared memory
+and the table of tiles the kernel walks (:func:`tile_table`: each tile's
+pixels, channels, staged rows and live taps), which the wrapper copies to
+the card once per shape. The CUDA source checks the shared memory against
+its own layout and the staged rows against its own count of the rows a tile
+reads. A shape the kernel cannot take (C not a multiple of 8 in bf16 or 4 in
+f32, Cout not of 16, a pointer not 16-byte aligned, W > 256, a tile's rows
+or layout beyond a TMA box or shared memory) has no plan, and on CUDA it
+raises ``ValueError``, as ``ops/fused_up.py`` does: there is no fallback
+from the kernel to the plain version. No configuration's colour generator
+reaches such a shape.
 
 ``tf32x3`` is the TMA kernel on f32 with error-compensated TF32 products:
 each operand is split into two TF32 parts (v = hi + lo) and three
@@ -67,9 +69,8 @@ SMEM_LIMIT = 232_448  # dynamic shared memory one block may opt into on Hopper
 ROW_BYTES = 128
 # weight parts per stage: f32 stages the high and the low TF32 part
 WEIGHT_PARTS = {torch.bfloat16: 1, torch.float32: 2}
-# the TMA kernel's route and the route of the shapes it cannot take, by dtype
+# the kernel's route, by dtype
 TMA_ROUTE = {torch.bfloat16: "tma", torch.float32: "tf32x3"}
-OTHER_ROUTE = {torch.bfloat16: "mma_sync", torch.float32: "f32"}
 # channels a multiple of this: 16-byte rows for TMA
 CHANNEL_MULTIPLE = {torch.bfloat16: 8, torch.float32: 4}
 # output channels per tile at most: f32 keeps two accumulators and a tap's
@@ -85,16 +86,16 @@ TILE_COLUMNS = ("m0", "m1", "n0", "p_lo", "live")
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one call runs: ``route`` and, for the TMA routes, the kernel's schedule."""
+    """How the kernel runs one call: its ``route`` and its schedule."""
 
-    route: str  # "tma", "mma_sync" (other bf16 shapes), "tf32x3" or "f32" (other f32 shapes)
-    bn: int = 0  # output channels per tile (divides Cout, at most MAX_BN)
-    w_stages: int = 0  # weight ring depth: one tap x ROW_BYTES of channels x bn rows x parts each
-    region_rows: int = 0  # flattened input rows staged per tile and chunk
-    grid: int = 0  # CTAs, persistent: CTA b runs units b, b + grid, ...
-    smem: int = 0  # dynamic shared memory bytes (the CUDA layout's, checked there)
-    m_tiles: int = 0
-    units: int = 0  # m_tiles x (Cout / bn): the rows of :func:`tile_table`
+    route: str  # "tma" (bf16) or "tf32x3" (f32)
+    bn: int  # output channels per tile (divides Cout, at most MAX_BN)
+    w_stages: int  # weight ring depth: one tap x ROW_BYTES of channels x bn rows x parts each
+    region_rows: int  # flattened input rows staged per tile and chunk
+    grid: int  # CTAs, persistent: CTA b runs units b, b + grid, ...
+    smem: int  # dynamic shared memory bytes (the CUDA layout's, checked there)
+    m_tiles: int
+    units: int  # m_tiles x (Cout / bn): the rows of :func:`tile_table`
 
 
 @functools.lru_cache(maxsize=64)
@@ -163,26 +164,24 @@ def _smem_bytes(w: int, bn: int, w_stages: int, rows: int, parts: int = 1) -> in
 def plan(
     n: int, h: int, w: int, c: int, cout: int, dtype: torch.dtype,
     aligned: bool = True, sms: int = H100_SMS,
-) -> Plan:
-    """The route and schedule of one call, from its shape alone.
+) -> Optional[Plan]:
+    """The kernel's schedule for one call, from its shape alone, or None
+    where the kernel cannot take the shape.
 
-    The TMA kernel takes C a multiple of 8 (bf16) or 4 (f32), Cout a
-    multiple of 16, W <= 256 and the rows of a tile <= 256 (TMA box limits),
-    and a layout that fits in shared memory: route ``tma`` for bf16,
-    ``tf32x3`` for f32. Other shapes take the mma.sync kernel (bf16) or the
-    FMA kernel (``f32``).
+    The kernel takes C a multiple of 8 (bf16) or 4 (f32), Cout a multiple of
+    16, W <= 256 and the rows of a tile <= 256 (TMA box limits), and a layout
+    that fits in shared memory: route ``tma`` for bf16, ``tf32x3`` for f32.
 
     ``aligned``: every pointer is 16-byte aligned. ``sms``: the card's
     streaming multiprocessors.
     """
-    other = Plan(OTHER_ROUTE[dtype])
     m = n * (h // 2) * (w // 2)
     if not (aligned and c % CHANNEL_MULTIPLE[dtype] == 0 and cout % 16 == 0 and w <= 256 and m > 0):
-        return other
+        return None
     t = _m_tiles(n, h, w)
     rows = int((t[:, 3] - t[:, 2]).max()) + 1
     if rows > 256:
-        return other
+        return None
     m_tiles = len(t)
     bn = next(b for b in (128, 64, 32, 16) if cout % b == 0 and b <= MAX_BN[dtype])
     # a small site splits Cout until the grid covers at least half the card
@@ -192,7 +191,7 @@ def plan(
     fixed = _smem_bytes(w, bn, 0, rows, parts)
     stages = min(MAX_W_STAGES, (SMEM_LIMIT - fixed) // (_smem_bytes(w, bn, 1, rows, parts) - fixed))
     if stages < MIN_W_STAGES:
-        return other
+        return None
     units = m_tiles * (cout // bn)
     return Plan(
         TMA_ROUTE[dtype], bn=bn, w_stages=stages, region_rows=rows, grid=min(units, sms),
@@ -264,23 +263,17 @@ def reference_norm_act_conv(
 
 
 def bind(lib: ctypes.CDLL):
-    """The two C entries of a ``fused_block`` library: (mma.sync and FMA, TMA)."""
-    old = lib.dcvgan_fused_norm_act_conv
-    old.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_float,
-        ctypes.c_void_p,
-    ]
-    old.restype = ctypes.c_int
-    tma = lib.dcvgan_fused_norm_act_conv_tma
-    tma.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] + [
+    """The C entry of a ``fused_block`` library."""
+    entry = lib.dcvgan_fused_norm_act_conv_tma
+    entry.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] + [
         ctypes.c_int
     ] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    tma.restype = ctypes.c_int
-    return old, tma
+    entry.restype = ctypes.c_int
+    return entry
 
 
 @functools.cache
-def _kernels():
+def _kernel():
     return bind(build.library("fused_block"))
 
 
@@ -290,7 +283,6 @@ def _tiles_on(device: torch.device, n: int, h: int, w: int, bn: int, cout: int) 
 
 
 _ERRORS = {
-    -1: "the input rows a bf16 mma.sync tile reads do not fit in shared memory",
     -2: "the plan's shared memory is not the CUDA source's layout",
     -5: "the plan stages fewer input rows than a tile reads",
     -3: "libcuda has no cuTensorMapEncodeTiled",
@@ -300,7 +292,7 @@ _ERRORS = {
 
 def plan_for(
     x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, xn_out: Optional[torch.Tensor] = None
-) -> Plan:
+) -> Optional[Plan]:
     """:func:`plan` for these CUDA tensors (their shapes, alignment and card)."""
     n, c, h, wd = x.shape
     ptrs = [x, w, out] + ([xn_out] if xn_out is not None else [])
@@ -317,35 +309,27 @@ def launch(
     out: torch.Tensor,
     negative_slope: float = 0.2,
     xn_out: Optional[torch.Tensor] = None,
-    kernels=None,
+    kernel=None,
 ) -> None:
-    """Launch the kernel of route ``p.route`` on the current stream; raises
-    if the launch fails. ``out`` is (N, Cout, H/2, W/2) channels-last.
-    ``kernels``: the :func:`bind` of another build of the source (the lesion
-    tool's); by default the package's own."""
+    """Launch the kernel on plan ``p`` on the current stream; raises if the
+    launch fails. ``out`` is (N, Cout, H/2, W/2) channels-last. ``kernel``:
+    the :func:`bind` of another build of the source (the lesion tool's); by
+    default the package's own."""
     n, c, h, wd = x.shape
     cout = w.shape[0]
     xn_ptr = xn_out.data_ptr() if xn_out is not None else None
-    old, tma = kernels or _kernels()
+    tiles = _tiles_on(x.device, n, h, wd, p.bn, cout)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if p.route in ("tma", "tf32x3"):
-            tiles = _tiles_on(x.device, n, h, wd, p.bn, cout)
-            # tf32x3: the weight's high and low TF32 parts, written by the library
-            split = torch.empty(2 * w.numel(), dtype=torch.float32, device=x.device) if (
-                p.route == "tf32x3") else None
-            err = tma(
-                _DTYPE_CODES[x.dtype], x.data_ptr(), scale.data_ptr(), shift.data_ptr(), w.data_ptr(),
-                split.data_ptr() if split is not None else None, out.data_ptr(),
-                xn_ptr, n, h, wd, c, cout, float(negative_slope),
-                p.bn, p.w_stages, p.region_rows, tiles.data_ptr(), p.units, p.grid, p.smem, stream,
-            )
-        else:
-            err = old(
-                _DTYPE_CODES[x.dtype], x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                w.data_ptr(), out.data_ptr(), xn_ptr, n, h, wd, c, cout,
-                float(negative_slope), stream,
-            )
+        # tf32x3: the weight's high and low TF32 parts, written by the library
+        split = torch.empty(2 * w.numel(), dtype=torch.float32, device=x.device) if (
+            p.route == "tf32x3") else None
+        err = (kernel or _kernel())(
+            _DTYPE_CODES[x.dtype], x.data_ptr(), scale.data_ptr(), shift.data_ptr(), w.data_ptr(),
+            split.data_ptr() if split is not None else None, out.data_ptr(),
+            xn_ptr, n, h, wd, c, cout, float(negative_slope),
+            p.bn, p.w_stages, p.region_rows, tiles.data_ptr(), p.units, p.grid, p.smem, stream,
+        )
     if err in _ERRORS:
         raise ValueError(f"fused_norm_act_conv ({p.route}, width {wd}): {_ERRORS[err]}")
     if err != 0:
@@ -366,7 +350,9 @@ def fused_norm_act_conv(
     scale, shift: (C,) float32; w: (Cout, C, 4, 4) channels-last in x's
     dtype; xn_out: optional (N, C, H, W) channels-last in x's dtype that
     receives the activation. Returns (N, Cout, H/2, W/2) channels-last.
-    Launches on the current stream and does not synchronise.
+    Launches on the current stream and does not synchronise. Runs the plain
+    version on a CPU tensor; on CUDA raises ``ValueError`` where :func:`plan`
+    has no plan.
     """
     _check(x, scale, shift, w, xn_out)
     if x.device.type == "cpu":
@@ -378,6 +364,12 @@ def fused_norm_act_conv(
         (n, w.shape[0], h // 2, wd // 2), dtype=x.dtype, device=x.device, memory_format=_CL
     )
     p = plan_for(x, w, out, xn_out)
+    if p is None:
+        raise ValueError(
+            f"fused_norm_act_conv has no plan for x {tuple(x.shape)} {x.dtype}, Cout {w.shape[0]}: "
+            f"the kernel takes C a multiple of {CHANNEL_MULTIPLE[x.dtype]}, Cout of 16, a non-empty "
+            f"output, 16-byte aligned tensors, W <= 256 and a layout that fits in shared memory"
+        )
     launch(p, x, scale, shift, w, out, negative_slope, xn_out)
     fused_norm_act_conv.launches += 1
     fused_norm_act_conv.routes[p.route] += 1

@@ -4,20 +4,16 @@ On the CPU ``dcvgan_torch.ops.fused_block.fused_norm_act_conv`` runs its
 plain version; it is held against the Pallas kernel in interpret mode and
 against ``reference_norm_act_conv``, on the same numpy inputs. The CUDA
 kernel itself is held against the plain version on the card (``gpu``
-marker here, and ``chip_smoke.py``).
+marker here, and ``chip_smoke.py``). The card's machine has no JAX, so the
+JAX package is imported in the cases that compare with it, and the ``gpu``
+cases run there with ``--noconftest``.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from dcvgan_torch.ops import fused_block as port
-from dcvgan_tpu.ops.fused_block import (
-    fused_norm_act_conv as jax_fused,
-    pack_weights,
-    reference_norm_act_conv as jax_reference,
-)
 from torch_port_util import ATOL_F32, hwio_to_torch, nchw, nhwc, within
 
 # bf16: both sides sum the same bf16 products in f32, in another order, and
@@ -33,6 +29,15 @@ def _case(b, h, w, c, cout, seed=0, shift_offset=0.0):
     scale = rng.uniform(0.5, 1.5, c).astype(np.float32)
     shift = (rng.normal(size=c) * 0.2 + shift_offset).astype(np.float32)
     return x, scale, shift, w4
+
+
+def _jax():
+    """jax.numpy and the JAX package's ``ops.fused_block``."""
+    import jax.numpy as jnp
+
+    from dcvgan_tpu.ops import fused_block
+
+    return jnp, fused_block
 
 
 def _port(x, scale, shift, w4, slope=0.2, dtype=torch.float32, xn_out=None):
@@ -53,11 +58,12 @@ def _port(x, scale, shift, w4, slope=0.2, dtype=torch.float32, xn_out=None):
     [(2, 64, 64, 8, 16), (3, 32, 32, 16, 32), (1, 16, 16, 4, 8), (4, 2, 2, 16, 8)],
 )
 def test_plain_matches_pallas_and_reference(b, h, w, c, cout):
+    _, ref = _jax()
     x, scale, shift, w4 = _case(b, h, w, c, cout)
     got = _port(x, scale, shift, w4)
-    want_ref = jax_reference(x, scale, shift, w4)
+    want_ref = ref.reference_norm_act_conv(x, scale, shift, w4)
     within(got, want_ref, ATOL_F32)
-    want_pallas = jax_fused(x, scale, shift, pack_weights(w4), interpret=True)
+    want_pallas = ref.fused_norm_act_conv(x, scale, shift, ref.pack_weights(w4), interpret=True)
     within(got, want_pallas, ATOL_F32)
     assert got.shape == (b, h // 2, w // 2, cout)
 
@@ -65,10 +71,11 @@ def test_plain_matches_pallas_and_reference(b, h, w, c, cout):
 def test_negative_slope_and_large_shift():
     # a shift large enough that the activation branches, and padding must
     # contribute 0, not leaky_relu(shift)
+    _, ref = _jax()
     x, scale, shift, w4 = _case(2, 32, 32, 8, 8, seed=3, shift_offset=1.0)
     got = _port(x, scale, shift, w4, slope=0.01)
-    within(got, jax_reference(x, scale, shift, w4, negative_slope=0.01), ATOL_F32)
-    want = jax_fused(x, scale, shift, pack_weights(w4), negative_slope=0.01, interpret=True)
+    within(got, ref.reference_norm_act_conv(x, scale, shift, w4, negative_slope=0.01), ATOL_F32)
+    want = ref.fused_norm_act_conv(x, scale, shift, ref.pack_weights(w4), negative_slope=0.01, interpret=True)
     within(got, want, ATOL_F32)
 
 
@@ -82,10 +89,11 @@ def test_xn_out_is_the_activation():
 
 
 def test_bf16_matches_jax_bf16():
+    jnp, ref = _jax()
     x, scale, shift, w4 = _case(2, 16, 16, 32, 16, seed=5)
     xb = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))  # bf16-exact inputs
     wb = np.asarray(jnp.asarray(w4, jnp.bfloat16).astype(jnp.float32))
-    want = jax_reference(
+    want = ref.reference_norm_act_conv(
         jnp.asarray(xb, jnp.bfloat16), scale, shift, jnp.asarray(wb, jnp.bfloat16)
     )
     xn = torch.empty(2, 32, 16, 16, dtype=torch.bfloat16).contiguous(
@@ -136,8 +144,8 @@ def cuda(monkeypatch):
     [
         (3, 32, 32, 64, 128),
         (3, 2, 2, 256, 256),
-        (3, 8, 8, 24, 40),
-        (3, 4, 4, 12, 8),  # C = 12: the mma.sync route
+        (3, 8, 8, 24, 40),  # Cout = 40: no plan, the op raises
+        (3, 4, 4, 12, 8),  # C = 12, Cout = 8: no plan, the op raises
         (3, 16, 16, 128, 256),  # a partial last tile and an odd tile count
         (300, 2, 2, 256, 256),  # down5's 2x2 input, 3 tiles
         (5, 4, 12, 64, 64),  # OW < 8, W != H
@@ -152,6 +160,11 @@ def test_kernel_matches_plain_on_gpu(cuda, dtype, n, h, w, c, cout):
     wt = hwio_to_torch(w4).to(cuda, dtype)
     xn_k, xn_p = torch.empty_like(xt), torch.empty_like(xt)
     before = port.fused_norm_act_conv.launches
+    if port.plan(n, h, w, c, cout, dtype) is None:
+        with pytest.raises(ValueError, match="no plan"):
+            port.fused_norm_act_conv(xt, st, sh, wt, 0.2, xn_out=xn_k)
+        assert port.fused_norm_act_conv.launches == before
+        return
     got = port.fused_norm_act_conv(xt, st, sh, wt, 0.2, xn_out=xn_k)
     want = port.reference_norm_act_conv(xt, st, sh, wt, 0.2, xn_out=xn_p)
     torch.cuda.synchronize()
@@ -318,17 +331,17 @@ def test_every_config_cgen_site_in_f32_takes_the_tf32x3_route():
             assert p.route == "tf32x3", (name, frames, h, c, cout, p)
 
 
-def test_plan_routes_other_shapes_to_the_old_kernels():
-    assert port.plan(3, 8, 8, 12, 8, torch.bfloat16).route == "mma_sync"  # C % 8
-    assert port.plan(3, 8, 8, 24, 40, torch.bfloat16).route == "mma_sync"  # Cout % 16
-    assert port.plan(3, 32, 32, 64, 128, torch.bfloat16, aligned=False).route == "mma_sync"
+def test_plan_is_none_for_shapes_the_tma_kernel_cannot_take():
+    assert port.plan(3, 8, 8, 12, 8, torch.bfloat16) is None  # C % 8
+    assert port.plan(3, 8, 8, 24, 40, torch.bfloat16) is None  # Cout % 16
+    assert port.plan(3, 32, 32, 64, 128, torch.bfloat16, aligned=False) is None
     # f32: the TMA kernel on error-compensated TF32, except where TMA cannot go
     assert port.plan(3, 32, 32, 64, 128, torch.float32).route == "tf32x3"
     assert port.plan(3, 8, 8, 12, 16, torch.float32).route == "tf32x3"  # C % 4 == 0 is enough
-    assert port.plan(3, 8, 8, 6, 16, torch.float32).route == "f32"  # C % 4
-    assert port.plan(3, 8, 8, 12, 8, torch.float32).route == "f32"  # Cout % 16
-    assert port.plan(3, 32, 32, 64, 128, torch.float32, aligned=False).route == "f32"
-    assert port.plan(2, 4, 512, 64, 64, torch.float32).route == "f32"  # W > 256: wider than a box
+    assert port.plan(3, 8, 8, 6, 16, torch.float32) is None  # C % 4
+    assert port.plan(3, 8, 8, 12, 8, torch.float32) is None  # Cout % 16
+    assert port.plan(3, 32, 32, 64, 128, torch.float32, aligned=False) is None
+    assert port.plan(2, 4, 512, 64, 64, torch.float32) is None  # W > 256: wider than a box
     # the flagship sites: one CTA per SM at most, every SM but a few busy
     for h, c, cout in FLAGSHIP_SITES:
         p = _tma_plan(4096, h, h, c, cout)
@@ -458,7 +471,7 @@ def test_three_tf32_products_hold_the_f32_tolerance_where_one_does_not():
         (5, 4, 12, 64, 64, "tf32x3"),  # OW < 8, W != H
         (7, 6, 6, 8, 16, "tf32x3"),  # C = 8 (debug-mock-depth's ngf): a quarter chunk
         (40, 6, 10, 64, 64, "tf32x3"),  # OH*OW = 15: tiles span images
-        (3, 8, 8, 12, 8, "f32"),  # Cout % 16: the FMA kernel
+        (3, 8, 8, 12, 8, None),  # Cout % 16: no plan, the op raises
     ],
 )
 def test_f32_routes_match_plain_on_gpu(cuda, n, h, w, c, cout, route, slope, shift_offset):
@@ -468,9 +481,17 @@ def test_f32_routes_match_plain_on_gpu(cuda, n, h, w, c, cout, route, slope, shi
     wt = hwio_to_torch(w4).to(cuda)
     xn_k, xn_p = torch.empty_like(xt), torch.empty_like(xt)
     out = torch.empty(n, cout, h // 2, w // 2, device=cuda, memory_format=torch.channels_last)
-    assert port.plan_for(xt, wt, out, xn_k).route == route
+    p = port.plan_for(xt, wt, out, xn_k)
+    assert (p and p.route) == route
+    before = port.fused_norm_act_conv.launches
+    if p is None:
+        with pytest.raises(ValueError, match="no plan"):
+            port.fused_norm_act_conv(xt, st, sh, wt, slope, xn_out=xn_k)
+        assert port.fused_norm_act_conv.launches == before
+        return
     got = port.fused_norm_act_conv(xt, st, sh, wt, slope, xn_out=xn_k)
     want = port.reference_norm_act_conv(xt, st, sh, wt, slope, xn_out=xn_p)
     torch.cuda.synchronize()
+    assert port.fused_norm_act_conv.launches == before + 1
     within(nhwc(got.cpu()), nhwc(want.cpu()), F32_ATOL, F32_RTOL)
     assert torch.equal(xn_k, xn_p)

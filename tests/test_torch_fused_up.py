@@ -11,7 +11,9 @@ against the plain version on the card (``gpu`` marker, and
 ``chip_smoke.py``).
 """
 
+import re
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -473,6 +475,36 @@ def test_gemm_weight_is_packed_once_per_weight_version():
     with torch.inference_mode():
         t = w.detach() * 1.0  # an inference tensor has no version: packed at each call
         assert up.gemm_weight(t, 8) is not up.gemm_weight(t, 8)
+
+
+# ---- the CUDA sources (read as text: nothing here compiles them)
+
+# the Hopper layer both TMA kernels take from csrc/hopper.cuh
+SHARED_HELPERS = {
+    "smem_u32", "swz", "mbar_init", "mbar_expect_tx", "mbar_arrive", "mbar_try_wait", "mbar_test",
+    "mbar_wait", "global_ns", "tma_load", "ldmatrix_x4", "wgmma_fence", "wgmma_commit", "wgmma_wait",
+    "smem_desc", "wgmma_rs", "EncodeTiled", "encode_tiled", "encode_3d",
+}
+
+
+def _defined_names(source: str) -> set:
+    """Functions a CUDA source defines (a type, then the name, then ``(`` or a
+    template argument list), and the aliases it declares with ``using``."""
+    decl = re.compile(r"^[ \t]*(?:template\s*<[^>\n]*>\s*)?(?:(?:__device__|__host__|__forceinline__|inline|static)\s+)*"
+                      r"(?!(?:asm|const|else|if|return)\b)[A-Za-z_][\w:]*(?:\s*[*&])?\s+(?!constexpr\b)(\w+)"
+                      r"\s*(?:<[^>\n]*>)?\s*\(", re.M)
+    return set(decl.findall(source)) | set(re.findall(r"^\s*using\s+(\w+)\s*=", source, re.M))
+
+
+def test_no_kernel_source_defines_what_hopper_cuh_defines():
+    csrc = Path(up.__file__).resolve().parents[1] / "csrc"
+    shared = _defined_names((csrc / "hopper.cuh").read_text())
+    assert SHARED_HELPERS <= shared, SHARED_HELPERS - shared
+    for src in sorted(csrc.glob("*.cu")):
+        text = src.read_text()
+        assert not _defined_names(text) & shared, (src.name, _defined_names(text) & shared)
+        if "wgmma" in text:  # a Hopper TMA kernel takes the layer from the header
+            assert '#include "hopper.cuh"' in text, src.name
 
 
 # ---- the CUDA kernel against its plain version (on the card)

@@ -48,6 +48,14 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
    a chunk) and mug-depth's (none; phase 4 asserts none too); two
    same-seed surreal-segm chunks byte for byte. ``python3 chip_smoke.py
    --softmax-codes`` runs this phase alone;
+3e. ``inconv3x3`` (the colour generator's inconv + LeakyReLU on a depth or
+   flow input in one launch): held to its plain version in f32 at the
+   serving shapes (N = 4096, Cin 1 and 2, Cout 64) and at edge shapes (two
+   launches each, the same bytes), timed beside its bound, the plain version
+   (cuDNN's conv, then LeakyReLU) and cuDNN's conv alone ("time inconv");
+   its launches counted on mug-depth's and isogd-flow's serving paths (4 a
+   chunk) and surreal-segm's (none); phase 4 counts one a cgen forward.
+   ``python3 chip_smoke.py --inconv`` runs this phase alone;
 4. the serving path: ``dcvgan_torch.cli.serve``'s ``serve()`` and
    ``GenerationServer.generate`` at the flagship width
    (``configs/mug-depth.yml``: depth, ngf 64, bf16, batch 256, seeded weights),
@@ -547,6 +555,7 @@ def phase_slice(card: str) -> int:
     from dcvgan_torch.ops.dequant import dequantize_video
     from dcvgan_torch.ops.fused_block import fused_norm_act_conv
     from dcvgan_torch.ops.fused_up import fused_norm_act_up_conv
+    from dcvgan_torch.ops.inconv import inconv3x3
     from dcvgan_torch.ops.onehot_conv import onehot_conv3x3
     from dcvgan_torch.ops.softmax_codes import softmax_codes
     from dcvgan_torch.train.state import GeneratorState
@@ -591,6 +600,7 @@ def phase_slice(card: str) -> int:
     dequantize_video.launches = 0
     onehot_conv3x3.launches = 0
     softmax_codes.launches = 0
+    inconv3x3.launches = 0
     # -- main path: counts from 0 ------------------------------------------
     t0 = time.perf_counter()
     xg, xc = gan.sample_videos(state, prng.base_key(11, "cuda"), batch)
@@ -616,6 +626,9 @@ def phase_slice(card: str) -> int:
     if up_launches != 10 * forwards or up_routes != {"k4s2": 9 * forwards, "k3s1": forwards}:
         raise AssertionError(f"expected {10 * forwards} fused_norm_act_up_conv launches "
                              f"({9 * forwards} k4s2 + {forwards} k3s1), counted {up_launches} {up_routes}")
+    print(f"inconv3x3 launches {inconv3x3.launches} for {forwards} cgen forwards", flush=True)
+    if inconv3x3.launches != forwards:
+        raise AssertionError(f"expected {forwards} inconv3x3 launches, counted {inconv3x3.launches}")
     if dequantize_video.launches != 0 or onehot_conv3x3.launches != 0 or softmax_codes.launches != 0:
         raise AssertionError("the serving path launched dequantize_video, onehot_conv3x3 or softmax_codes")
     for name, v in (("geometry", xg), ("colour", xc)):
@@ -1051,6 +1064,120 @@ def phase_softmax_codes(card: str) -> dict:
         torch.cuda.empty_cache()
     return {"name": "softmax_codes", "source": "dcvgan_torch/csrc/softmax_codes.cu", "replaces": None,
             "min_exact_share": min(exact), **row, "launches": counts}
+
+
+# (N, Cin, H, W, Cout) of inconv3x3 beside the serving shapes (4096, 1 and 2,
+# 64, 64, 64): W not a multiple of 8 (staged an element at a time), an image
+# of one row, one frame, Cout 8 and 136, Cin 3 and 4 (four channels a
+# thread), a 600-wide image (a row a tile), W * Cin = 8 at Cin 2
+INCONV_EDGE_CASES = [(2, 1, 64, 64, 64), (2, 2, 64, 64, 64), (3, 1, 9, 7, 64), (2, 2, 1, 16, 64), (1, 1, 8, 8, 8),
+                     (2, 2, 5, 12, 136), (2, 2, 7, 7, 8), (2, 3, 6, 10, 16), (1, 4, 7, 5, 24), (2, 1, 3, 600, 64),
+                     (3, 2, 6, 4, 32)]
+# |kernel - plain| <= one bf16 ulp of the larger magnitude + INCONV_ATOL: the
+# plain version runs in f32 (TF32 off) on the same bf16 inputs and weights
+# and rounds once, as the kernel does; the two sum the same exact products
+# in another order, which near 0 leaves ~1e-7 that one ulp there does not
+# cover
+INCONV_ATOL = 1e-5
+
+
+def inconv_inputs(n, cin, h, w, cout, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.rand(n, cin, h, w, generator=g, device="cuda") * 2 - 1).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    wt = (torch.randn(cout, cin, 3, 3, generator=g, device="cuda") * 0.3).to(torch.bfloat16)
+    return x, wt.to(memory_format=torch.channels_last)  # the serving copy's weight layout
+
+
+def inconv_bound(n, cin, h, w, cout) -> float:
+    """Seconds of one inconv3x3 call at the memory's rate: each bf16 input
+    read once, each bf16 output written once (its 9 * Cin * Cout FMAs a
+    pixel take less at the f32 rate)."""
+    return n * h * w * (cin + cout) * 2 / PEAK_BYTES_PER_S
+
+
+def check_inconv(n, cin, h, w, cout) -> float:
+    """inconv3x3 against its plain version in f32; returns max |diff|."""
+    from dcvgan_torch.ops.inconv import inconv3x3, reference_inconv3x3
+
+    x, wt = inconv_inputs(n, cin, h, w, cout, seed=cin + h)
+    got, again = inconv3x3(x, wt), inconv3x3(x, wt)
+    torch.cuda.synchronize()
+    label = f"inconv3x3 N={n} Cin={cin} {h}x{w} Cout={cout}"
+    if got.shape != (n, cout, h, w) or not got.is_contiguous(memory_format=torch.channels_last):
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} or layout off")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two calls gave other bytes")
+    worst, worst_ulps = 0.0, 0.0
+    for i in range(0, n, 512):  # the f32 plain version a slice at a time
+        want = reference_inconv3x3(x[i:i + 512].float().contiguous(memory_format=torch.channels_last), wt.float())
+        g = got[i:i + 512].float()
+        d = (g - want).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(g.abs(), want.abs()).clamp(min=2.0**-126))) - 7)
+        if (d > ulp + INCONV_ATOL).any():
+            raise AssertionError(f"{label}: {int((d > ulp + INCONV_ATOL).sum())} outputs off, "
+                                 f"max |diff| {d.max().item():.3e}")
+        worst = max(worst, d.max().item())
+        worst_ulps = max(worst_ulps, (torch.where(d > INCONV_ATOL, d, torch.zeros_like(d)) / ulp).max().item())
+    print(f"check {label}: max|diff| {worst:.3e}, {worst_ulps:.2f} ulp where over {INCONV_ATOL:g} "
+          f"(tol one bf16 ulp + {INCONV_ATOL:g}), same bytes twice", flush=True)
+    return worst
+
+
+def phase_inconv(card: str) -> dict:
+    """inconv3x3 (the colour generator's inconv + LeakyReLU on a depth or flow
+    input): held to its plain version at the serving shapes (N = 4096, Cin 1
+    and 2, Cout 64) and at edge shapes; timed against its bound, the plain
+    version (the chain cgen ran: cuDNN's conv, then LeakyReLU) and cuDNN's
+    conv alone, and the host's cost of a call of each op; its launches counted on mug-depth's and isogd-flow's serving
+    paths (4 a chunk) and surreal-segm's (none)."""
+    import torch.nn.functional as F
+
+    from dcvgan_torch.cli.serve import Sink, serve
+    from dcvgan_torch.config import load_config
+    from dcvgan_torch.ops.inconv import inconv3x3, reference_inconv3x3
+    from dcvgan_torch.train.step import DCVGAN
+
+    cout = load_config(ROOT / "configs" / f"{FLAGSHIP}.yml").cgen.ngf
+    errs, rows = [], []
+    for cin in (1, 2):
+        errs.append(check_inconv(N_FRAMES, cin, 64, 64, cout))
+        x, wt = inconv_inputs(N_FRAMES, cin, 64, 64, cout, seed=9)
+        row = {"site": f"cgen.inconv (Cin {cin})", "N": N_FRAMES, "Cin": cin, "Cout": cout,
+               "kernel_ms": cuda_ms(lambda: inconv3x3(x, wt)),
+               "library_ms": cuda_ms(lambda: F.conv2d(x, wt, padding=1)),
+               "plain_ms": cuda_ms(lambda: reference_inconv3x3(x, wt)),
+               "bound_ms": inconv_bound(N_FRAMES, cin, 64, 64, cout) * 1e3, "bound_by": "bytes"}
+        row["of_bound"] = row["bound_ms"] / row["kernel_ms"]
+        # the host's cost of one call, where the device keeps up (16 frames)
+        xs, ws = x[:16], wt
+        row["kernel_host_us"] = host_us(lambda: inconv3x3(xs, ws))
+        row["plain_host_us"] = host_us(lambda: reference_inconv3x3(xs, ws))
+        print("time inconv " + json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in row.items()})
+              + f" ok ({card})", flush=True)
+        rows.append(row)
+        del x, wt, xs, ws
+    errs += [check_inconv(*shape) for shape in INCONV_EDGE_CASES]
+    torch.cuda.empty_cache()
+
+    counts = {}
+    for name, chunks in ((FLAGSHIP, 2), ("isogd-flow", 2), ("surreal-segm", 2)):
+        cfg = load_config(ROOT / "configs" / f"{name}.yml")
+        gan = DCVGAN(cfg)
+        served = gan.init_state(cfg.seed).generators()
+        inconv3x3.launches = 0
+        stats = serve(gan, served, 256, 4, chunks, Sink("null", None, cfg.geometric_info.name, False), seed=0)
+        torch.cuda.synchronize()
+        counts[name] = inconv3x3.launches
+        want = 0 if name == "surreal-segm" else 4 * (chunks + 1)  # serve()'s warm-up chunk is a chunk too
+        print(f"{name} serve: {counts[name]} inconv3x3 launches for {chunks + 1} chunks of 4 rounds "
+              f"(warm-up included; expected {want}), {stats['value']} videos/s", flush=True)
+        if counts[name] != want:
+            raise AssertionError(f"{name}: expected {want} inconv3x3 launches, counted {counts[name]}")
+        del gan, served
+        torch.cuda.empty_cache()
+    return {"name": "inconv3x3", "source": "dcvgan_torch/csrc/inconv.cu", "replaces": None,
+            "max_abs_err": max(errs), "sites": rows, "launches": counts}
 
 
 F32_SERVE_BATCH, F32_SERVE_ITERS, F32_SERVE_CHUNKS = 256, 2, 4
@@ -3741,10 +3868,14 @@ def main() -> int:
     if sys.argv[1:2] == ["--softmax-codes"]:  # that phase alone
         print(json.dumps({"softmax_codes": phase_softmax_codes(card)}))
         return 0
+    if sys.argv[1:2] == ["--inconv"]:  # that phase alone
+        print(json.dumps({"inconv": phase_inconv(card)}))
+        return 0
     entry = phase_kernels()
     up_entry = phase_fused_up(card)
     onehot_entry = phase_onehot_conv(card)
     softmax_entry = phase_softmax_codes(card)
+    inconv_entry = phase_inconv(card)
     dequant_entry = phase_dequant()
     # each kernel's launches on the serving main path, counted from 0
     entry["launches"], up_entry["serve_launches"] = phase_slice(card)
@@ -3801,7 +3932,7 @@ def main() -> int:
                                evaluation["fused_err"], inference["fused_err"], served["fused_err"],
                                parallel["fused_err"], timed["fused_err"], h2h["fused_err"], tools["fused_err"])
 
-    print(json.dumps({"kernels": [entry, dequant_entry, up_entry, onehot_entry, softmax_entry]}))
+    print(json.dumps({"kernels": [entry, dequant_entry, up_entry, onehot_entry, softmax_entry, inconv_entry]}))
     print(card_line())
     print(json.dumps({
         "ok": True,

@@ -8,11 +8,15 @@ k4 s2 p1 + BatchNorm [+ Dropout2d on the first two] + ReLU) with skips;
 outconv = transposed conv3x3 + tanh. Segmentation inputs are re-binarised
 to a +-1 one-hot by argmax.
 
-In eval mode in bfloat16 on CUDA a segmentation input's argmax, one-hot,
-inconv and LeakyReLU are one launch of :func:`onehot_conv3x3`
-(``ops/onehot_conv.py``: the conv of a +-1 one-hot as a gather of weight
-rows), inside the span ``cgen.onehot_conv`` (``utils/trace.py``). Train mode,
-float32 and the CPU keep the modules.
+The inconv has two fused paths, by input, in eval mode in bfloat16 on CUDA;
+train mode, float32 and the CPU keep the modules. A segmentation input's
+argmax, one-hot, inconv and LeakyReLU are one launch of
+:func:`onehot_conv3x3` (``ops/onehot_conv.py``: the conv of a +-1 one-hot as
+a gather of weight rows, ``models.layers.onehot_fused``), inside the span
+``cgen.onehot_conv``. A depth or optical-flow input's inconv and LeakyReLU
+are one launch of :func:`inconv3x3` (``ops/inconv.py``: a dense 3x3 stencil
+with the weights in registers, ``models.layers.inconv_fused``), inside the
+span ``cgen.inconv`` (spans: ``utils/trace.py``).
 
 In eval mode the down path runs on :func:`fused_norm_act_conv`: there a
 BatchNorm is a per-channel affine, so down block i (i >= 1) is exactly
@@ -69,6 +73,7 @@ from dcvgan_torch.models.layers import (
     decodes_fused,
     fold_batch_norm,
     fold_time,
+    inconv_fused,
     init_weights_,
     leaky_relu,
     norm_layer,
@@ -79,6 +84,7 @@ from dcvgan_torch.models.layers import (
 )
 from dcvgan_torch.ops.fused_block import fused_norm_act_conv
 from dcvgan_torch.ops.fused_up import fused_norm_act_up_conv
+from dcvgan_torch.ops.inconv import inconv3x3
 from dcvgan_torch.ops.onehot_conv import onehot_conv3x3
 from dcvgan_torch.utils import trace
 
@@ -183,6 +189,9 @@ class ColorVideoGenerator(nn.Module):
         if self.geometric_info == "segmentation" and onehot_fused(x, train):
             with trace.span("cgen.onehot_conv"):
                 hs = [onehot_conv3x3(x, self.inconv.main[0].weight.to(dtype), 0.01)]
+        elif inconv_fused(x, train, self.geometric_info):
+            with trace.span("cgen.inconv"):
+                hs = [inconv3x3(x, self.inconv.main[0].weight.to(dtype), 0.01)]
         else:
             if self.geometric_info == "segmentation":
                 # argmax cuts the gradient here, as stop_gradient does in JAX

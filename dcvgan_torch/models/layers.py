@@ -314,6 +314,15 @@ def onehot_fused(x: torch.Tensor, train: bool) -> bool:
     return not train and x.dtype == torch.bfloat16 and x.is_cuda
 
 
+def inconv_fused(x: torch.Tensor, train: bool, geometric_info: str) -> bool:
+    """Whether the colour generator's inconv and its LeakyReLU run on
+    ``ops.inconv.inconv3x3`` (one launch) for a dense geometric input ``x``
+    (depth, optical flow): eval mode, bfloat16, on CUDA. A segmentation
+    input takes :func:`onehot_fused`'s op instead; train mode, float32 and
+    the CPU keep the unfused modules."""
+    return not train and geometric_info != "segmentation" and x.dtype == torch.bfloat16 and x.is_cuda
+
+
 class RowsOfBatch(NamedTuple):
     """Draws of a batch of ``total`` rows from ``generator``, of which this
     rank keeps ``rows``: a rank's share of a global batch's draw."""

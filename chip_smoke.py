@@ -16,12 +16,16 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
    on error-compensated TF32) beside the bound of three TF32 products on the
    tensor cores and the FFMA floor, each route asserted at the flagship
    sites and at edge shapes (slope 0.2 and 0.01 with shift + 1), and a
-   ``ValueError`` with no launch at a shape the kernel cannot take; a train
-   step's two ``dequant`` batches in one launch and launched per tensor in
-   turns;
+   ``ValueError`` with no launch at a shape the kernel cannot take; the
+   bf16 kernel also at ``configs/surreal-depth3.yml``'s five cgen sites
+   (cgen ngf 96), held and timed beside cuDNN and the unfused BatchNorm +
+   LeakyReLU + conv chain; a train step's two ``dequant`` batches in one
+   launch and launched per tensor in turns. ``python3 chip_smoke.py
+   --fused-block`` runs the ``fused_norm_act_conv`` part alone;
 3b. ``fused_norm_act_up_conv`` (the decoders' fused transposed convs):
-   held to its plain version at the serving path's ten sites at N = 4096
-   and at edge shapes (two launches each, the same bytes), timed at each
+   held to its plain version at the serving path's ten sites, surreal-segm's
+   four ggen sites and surreal-depth3's six cgen sites at N = 4096 and at
+   edge shapes (two launches each, the same bytes), timed at each
    site beside its bound, the plain version, cuDNN's transposed conv on the
    materialised activation and the unfused BatchNorm + ReLU + cat + conv
    chain it replaces ("time up" lines); two chunks of one seed byte for
@@ -50,11 +54,14 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
    --softmax-codes`` runs this phase alone;
 3e. ``inconv3x3`` (the colour generator's inconv + LeakyReLU on a depth or
    flow input in one launch): held to its plain version in f32 at the
-   serving shapes (N = 4096, Cin 1 and 2, Cout 64) and at edge shapes (two
-   launches each, the same bytes), timed beside its bound, the plain version
-   (cuDNN's conv, then LeakyReLU) and cuDNN's conv alone ("time inconv");
-   its launches counted on mug-depth's and isogd-flow's serving paths (4 a
-   chunk) and surreal-segm's (none); phase 4 counts one a cgen forward.
+   serving shapes (N = 4096, Cin 1 and 2, Cout 64; Cin 1, Cout 96 for
+   surreal-depth3) and at edge shapes (two launches each, the same bytes),
+   timed beside its bound, the plain version (cuDNN's conv, then
+   LeakyReLU) and cuDNN's conv alone ("time inconv"); its launches counted
+   by template instance on mug-depth's and isogd-flow's serving paths (4 a
+   chunk) and surreal-segm's (none); on surreal-depth3's (cgen ngf 96)
+   with its fused launches, 4, 20 and 40 a chunk; phase 4 counts one a
+   cgen forward.
    ``python3 chip_smoke.py --inconv`` runs this phase alone;
 4. the serving path: ``dcvgan_torch.cli.serve``'s ``serve()`` and
    ``GenerationServer.generate`` at the flagship width
@@ -226,6 +233,9 @@ PEAK_BYTES_PER_S = 3.35e12
 
 N_FRAMES = 4096  # batch 256 x 16 frames: the flagship serve call
 FLAGSHIP = "mug-depth"  # configs/mug-depth.yml: ngf 64, 64 px
+# configs/surreal-depth3.yml: the widest published colour generator (cgen ngf
+# 96, ggen ngf 64 to depth), whose cgen sites no flagship phase reaches
+WIDE_CGEN = "surreal-depth3"
 # out: |kernel - plain| <= atol + rtol * |plain|. bf16: both sum the same
 # exact bf16 products in f32, in another order, so the outputs may round to
 # neighbouring bf16 values (one ulp <= 2^-7 relative). f32: summation order
@@ -366,7 +376,17 @@ def flagship_sites() -> list:
     return cgen_sites(load_config(ROOT / "configs" / f"{FLAGSHIP}.yml"))
 
 
-def check_sites(n: int, path: str, sites: list) -> float:
+def wide_cgen_sites() -> list:
+    """:func:`cgen_sites` of ``configs/surreal-depth3.yml`` (cgen ngf 96: 32
+    px 96 -> 192, 16 px 192 -> 384, then 384 -> 384), each name prefixed."""
+    from dcvgan_torch.config import load_config
+
+    return [(f"{WIDE_CGEN}.{name}", h, c, cout)
+            for name, h, c, cout in cgen_sites(load_config(ROOT / "configs" / f"{WIDE_CGEN}.yml"))]
+
+
+def check_sites(n: int, path: str, sites: list,
+                dtypes: tuple = (torch.bfloat16, torch.float32)) -> float:
     """The kernel against its plain version at ``sites`` (the widths of the
     path's cgen, :func:`cgen_sites`) and ``n`` frames, the frame count one
     sampling round of ``path`` gives it (its route, tile table and
@@ -376,7 +396,7 @@ def check_sites(n: int, path: str, sites: list) -> float:
     from dcvgan_torch.ops.fused_block import fused_norm_act_conv, reference_norm_act_conv
 
     errs = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         for name, h, c, cout in sites:
             for xn in (True, False):
                 e = check_kernel(fused_norm_act_conv, reference_norm_act_conv, n, h, c, cout, dtype, xn)
@@ -393,8 +413,9 @@ def phase_kernels() -> dict:
 
     from dcvgan_torch.ops.fused_block import fused_norm_act_conv, launch, plan_for, reference_norm_act_conv
 
-    sites_64 = flagship_sites()
-    errs = [check_sites(N_FRAMES, "serve", sites_64)]
+    sites_64, sites_96 = flagship_sites(), wide_cgen_sites()
+    errs = [check_sites(N_FRAMES, "serve", sites_64),
+            check_sites(N_FRAMES, f"{WIDE_CGEN} serve", sites_96, (torch.bfloat16,))]
     for dtype in (torch.bfloat16, torch.float32):
         # LeakyReLU slope 0.01 with a shift large enough that the activation
         # branches differently and padding != leaky_relu(shift) would show
@@ -436,37 +457,45 @@ def phase_kernels() -> dict:
                       f"{route}, slope {slope}): max|diff| {e:.3e}", flush=True)
 
     sites = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for name, h, c, cout in sites_64:
-            x, scale, shift, w = kernel_inputs(N_FRAMES, h, c, cout, dtype, seed=1)
-            xn = torch.empty_like(x)
-            reference_norm_act_conv(x, scale, shift, w, 0.2, xn_out=xn)  # for the library call
-            bound, bound_by, flops, nbytes = site_bound(N_FRAMES, h, c, cout, dtype, True)
-            row = {"site": name, "dtype": str(dtype)[6:], "x": [N_FRAMES, h, h, c], "cout": cout}
-            out = torch.empty(N_FRAMES, cout, h // 2, h // 2, dtype=dtype, device="cuda",
-                              memory_format=torch.channels_last)
-            plan = plan_for(x, w, out, xn)
-            want_route = "tma" if dtype == torch.bfloat16 else "tf32x3"
-            if plan is None or plan.route != want_route:
-                raise AssertionError(f"{name} does not take the {want_route} route: {plan}")
-            row.update(kernel_ms=cuda_ms(lambda: launch(plan, x, scale, shift, w, out, 0.2, xn)),
-                       plan={k: v for k, v in vars(plan).items() if k != "route"})
-            if dtype == torch.float32:
-                # the CUDA cores' FFMA floor beside the route's own
-                row["ffma_bound_ms"] = bound
-                bound, bound_by, _, _ = site_bound(N_FRAMES, h, c, cout, dtype, True, tf32x3=True)
-            row.update(
-                plain_ms=cuda_ms(lambda: reference_norm_act_conv(x, scale, shift, w, 0.2, xn_out=xn)),
-                library_ms=cuda_ms(lambda: F.conv2d(xn, w, stride=2, padding=1)),
-                bound_ms=bound, bound_by=bound_by, gflop=flops / 1e9, gbytes=nbytes / 1e9,
-            )
-            row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
-            row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
-            sites.append(row)
-            print("time " + json.dumps(row), flush=True)
-            del x, xn
+    timed = [(dtype, site) for dtype in (torch.bfloat16, torch.float32) for site in sites_64]
+    for dtype, (name, h, c, cout) in timed + [(torch.bfloat16, site) for site in sites_96]:
+        x, scale, shift, w = kernel_inputs(N_FRAMES, h, c, cout, dtype, seed=1)
+        xn = torch.empty_like(x)
+        reference_norm_act_conv(x, scale, shift, w, 0.2, xn_out=xn)  # for the library call
+        bound, bound_by, flops, nbytes = site_bound(N_FRAMES, h, c, cout, dtype, True)
+        row = {"site": name, "dtype": str(dtype)[6:], "x": [N_FRAMES, h, h, c], "cout": cout}
+        out = torch.empty(N_FRAMES, cout, h // 2, h // 2, dtype=dtype, device="cuda",
+                          memory_format=torch.channels_last)
+        plan = plan_for(x, w, out, xn)
+        want_route = "tma" if dtype == torch.bfloat16 else "tf32x3"
+        if plan is None or plan.route != want_route:
+            raise AssertionError(f"{name} does not take the {want_route} route: {plan}")
+        row.update(kernel_ms=cuda_ms(lambda: launch(plan, x, scale, shift, w, out, 0.2, xn)),
+                   plan={k: v for k, v in vars(plan).items() if k != "route"})
+        if dtype == torch.float32:
+            # the CUDA cores' FFMA floor beside the route's own
+            row["ffma_bound_ms"] = bound
+            bound, bound_by, _, _ = site_bound(N_FRAMES, h, c, cout, dtype, True, tf32x3=True)
+        bn_mean, bn_var = -shift / scale, torch.ones_like(scale) - 1e-5  # the BatchNorm this affine folds
+
+        def chain():  # the unfused path: BatchNorm, LeakyReLU, cuDNN's conv
+            a = F.batch_norm(x, bn_mean, bn_var, scale, torch.zeros_like(scale), False, 0.0, 1e-5)
+            return F.conv2d(F.leaky_relu(a, 0.2), w, stride=2, padding=1)
+
+        row.update(
+            plain_ms=cuda_ms(lambda: reference_norm_act_conv(x, scale, shift, w, 0.2, xn_out=xn)),
+            library_ms=cuda_ms(lambda: F.conv2d(xn, w, stride=2, padding=1)),
+            chain_ms=cuda_ms(chain),
+            bound_ms=bound, bound_by=bound_by, gflop=flops / 1e9, gbytes=nbytes / 1e9,
+        )
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
+        sites.append(row)
+        print("time " + json.dumps(row), flush=True)
+        del x, xn
     torch.cuda.empty_cache()
-    main_path = [r for r in sites if r["dtype"] == "bfloat16"]
+    wide = [r for r in sites if r["site"].startswith(f"{WIDE_CGEN}.")]
+    main_path = [r for r in sites if r["dtype"] == "bfloat16" and r not in wide]
     f32_path = [r for r in sites if r["dtype"] == "float32"]
     by_kind = {"bytes": 0.0, "operations": 0.0}
     for r in main_path:
@@ -497,9 +526,14 @@ def phase_kernels() -> dict:
         "f32_bound_ms": sum(r["bound_ms"] for r in f32_path),
         "f32_bound_by": max(f32_by_kind, key=f32_by_kind.get),
         "f32_ffma_bound_ms": sum(r["ffma_bound_ms"] for r in f32_path),
+        # surreal-depth3's five bf16 sites (cgen ngf 96)
+        "wide": {k: sum(r[k] for r in wide) for k in ("kernel_ms", "bound_ms", "library_ms", "chain_ms")},
     }
     print(f"fused_norm_act_conv bf16, five sites: TMA route {entry['ms']:.4f} ms, bound "
           f"{entry['bound_ms']:.4f} ms, cuDNN {entry['library_ms']:.4f} ms", flush=True)
+    print(f"fused_norm_act_conv bf16, {WIDE_CGEN}'s five sites (cgen ngf 96): TMA route "
+          f"{entry['wide']['kernel_ms']:.4f} ms, bound {entry['wide']['bound_ms']:.4f} ms, cuDNN "
+          f"{entry['wide']['library_ms']:.4f} ms, unfused chain {entry['wide']['chain_ms']:.4f} ms", flush=True)
     print(f"fused_norm_act_conv f32, five sites: tf32x3 route {entry['f32_ms']:.4f} ms, plain "
           f"{entry['f32_plain_ms']:.4f} ms, cuDNN f32 (TF32 off) "
           f"{entry['f32_library_ms']:.4f} ms, bound {entry['f32_bound_ms']:.4f} ms (three TF32 products), "
@@ -751,10 +785,29 @@ def segm_ggen_sites() -> list:
     return decoder_sites(ggen, None, cfg.image_size, prefix="surreal.")
 
 
+def wide_cgen_up_sites() -> list:
+    """cgen's six fused sites at surreal-depth3's widths (cgen ngf 96): up1-5
+    (384 + 384 -> 384 twice, 384 + 384 -> 192, 192 + 192 -> 96, 96 + 96 ->
+    96) and the outconv (96 + 96 -> 3, k3), each name prefixed."""
+    from dcvgan_torch.config import load_config
+    from dcvgan_torch.models.cgen import ColorVideoGenerator
+    from dcvgan_torch.models.ggen import GeometricVideoGenerator
+
+    cfg = load_config(ROOT / "configs" / f"{WIDE_CGEN}.yml")
+    ggen = GeometricVideoGenerator(channel=cfg.geometric_info.channel, geometric_info=cfg.geometric_info.name,
+                                   ngf=cfg.ggen.ngf, image_size=cfg.image_size)
+    cgen = ColorVideoGenerator(in_ch=cfg.geometric_info.channel, dim_z=cfg.cgen.dim_z_color,
+                               geometric_info=cfg.geometric_info.name, ngf=cfg.cgen.ngf,
+                               image_size=cfg.image_size)
+    return [(f"{WIDE_CGEN}.{name}", *rest) for name, *rest in decoder_sites(ggen, cgen, cfg.image_size)
+            if name.startswith("cgen.")]
+
+
 def phase_fused_up(card: str) -> dict:
     """fused_norm_act_up_conv: held to its plain version at the serving
-    path's ten sites and surreal-segm's four ggen sites (ngf 96) at N = 4096
-    and at edge shapes; timed at each site against the bound, the plain
+    path's ten sites, surreal-segm's four ggen sites (ngf 96) and
+    surreal-depth3's six cgen sites (cgen ngf 96) at N = 4096 and at edge
+    shapes; timed at each site against the bound, the plain
     version, cuDNN's conv_transpose2d on the materialised activation and the
     unfused chain it replaces; two same-seed chunks byte for byte."""
     import torch.nn.functional as F
@@ -768,13 +821,14 @@ def phase_fused_up(card: str) -> dict:
     gan = DCVGAN(cfg)
     state = gan.init_state(cfg.seed)
     served = state.generators()
-    sites = decoder_sites(served.ggen, served.cgen, cfg.image_size) + segm_ggen_sites()
+    sites = decoder_sites(served.ggen, served.cgen, cfg.image_size) + segm_ggen_sites() + wide_cgen_up_sites()
     errs = [check_up(N_FRAMES, h, h, c1, c2, cout, route, name) for name, h, c1, c2, cout, route in sites]
     errs += [check_up(n, h, w, c1, c2, cout, route, label) for label, n, h, w, c1, c2, cout, route in UP_EDGE_CASES]
     torch.cuda.empty_cache()
 
     keys = ("kernel_ms", "bound_ms", "library_ms", "chain_ms", "plain_ms")
-    rows, total, segm_total = [], dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
+    rows = []
+    total, segm_total, wide_total = (dict.fromkeys(keys, 0.0) for _ in range(3))
     for name, h, c1, c2, cout, route in sites:
         x, scale, shift, wt, skip = up_inputs(N_FRAMES, h, h, c1, c2, cout, route, seed=3)
         stride = 2 if route == "k4s2" else 1
@@ -798,8 +852,10 @@ def phase_fused_up(card: str) -> dict:
         row["of_bound"] = row["bound_ms"] / row["kernel_ms"]
         p = plan(N_FRAMES, h, h, c1, c2, cout, route)
         row["unit"] = f"{p.phases}x{p.mblocks}x{p.bn} {'r' if p.resident else 's'}"
+        into = (segm_total if name.startswith("surreal.") else
+                wide_total if name.startswith(f"{WIDE_CGEN}.") else total)
         for k in keys:
-            (segm_total if name.startswith("surreal.") else total)[k] += row[k]
+            into[k] += row[k]
         rows.append(row)
         print("time up " + json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in row.items()}),
               flush=True)
@@ -812,6 +868,10 @@ def phase_fused_up(card: str) -> dict:
     print(f"fused_norm_act_up_conv, surreal-segm's four ggen sites (ngf 96) at N={N_FRAMES}: kernel "
           f"{segm_total['kernel_ms']:.3f} ms, bound {segm_total['bound_ms']:.3f}, cuDNN conv "
           f"{segm_total['library_ms']:.3f}, unfused chain {segm_total['chain_ms']:.3f} ({card})", flush=True)
+    print(f"fused_norm_act_up_conv, {WIDE_CGEN}'s six cgen sites (ngf 96) at N={N_FRAMES}: kernel "
+          f"{wide_total['kernel_ms']:.3f} ms, bound {wide_total['bound_ms']:.3f} "
+          f"({wide_total['bound_ms'] / wide_total['kernel_ms']:.1%} of it), cuDNN conv {wide_total['library_ms']:.3f}, "
+          f"unfused chain {wide_total['chain_ms']:.3f} ({card})", flush=True)
 
     # two chunks from one seed: the same bytes
     chunk_fn = make_chunk_fn(gan, 256, 4)
@@ -824,7 +884,7 @@ def phase_fused_up(card: str) -> dict:
         raise AssertionError("two chunks from one seed differ")
     print(f"two same-seed chunks (256 x 4 videos): equal byte for byte, checksum {int(outs[0][0])}", flush=True)
     return {"name": "fused_norm_act_up_conv", "source": "dcvgan_torch/csrc/fused_up.cu", "replaces": None,
-            "max_abs_err": max(errs), "sites": rows, **total, "surreal_ggen": segm_total}
+            "max_abs_err": max(errs), "sites": rows, **total, "surreal_ggen": segm_total, "wide_cgen": wide_total}
 
 # (N, C, H, W, Cout) of onehot_conv3x3 beside the serving shape (4096, 25,
 # 64, 64, 64): class counts 2, 5, 7 and 25, Cout 8, 16 and 64, W != H,
@@ -1127,23 +1187,30 @@ def check_inconv(n, cin, h, w, cout) -> float:
 def phase_inconv(card: str) -> dict:
     """inconv3x3 (the colour generator's inconv + LeakyReLU on a depth or flow
     input): held to its plain version at the serving shapes (N = 4096, Cin 1
-    and 2, Cout 64) and at edge shapes; timed against its bound, the plain
-    version (the chain cgen ran: cuDNN's conv, then LeakyReLU) and cuDNN's
-    conv alone, and the host's cost of a call of each op; its launches counted on mug-depth's and isogd-flow's serving
-    paths (4 a chunk) and surreal-segm's (none)."""
+    and 2, Cout 64; Cin 1, Cout 96 for surreal-depth3) and at edge shapes;
+    timed against its bound, the plain version (the chain cgen ran: cuDNN's
+    conv, then LeakyReLU) and cuDNN's conv alone, and the host's cost of a
+    call of each op; its launches counted, by template instance, on
+    mug-depth's and isogd-flow's serving paths (4 a chunk), surreal-segm's
+    (none) and surreal-depth3's, whose fused launches are counted too (4,
+    20 and 40 a chunk)."""
     import torch.nn.functional as F
 
     from dcvgan_torch.cli.serve import Sink, serve
     from dcvgan_torch.config import load_config
-    from dcvgan_torch.ops.inconv import inconv3x3, reference_inconv3x3
+    from dcvgan_torch.ops.fused_block import fused_norm_act_conv
+    from dcvgan_torch.ops.fused_up import fused_norm_act_up_conv
+    from dcvgan_torch.ops.inconv import inconv3x3, instance, reference_inconv3x3
     from dcvgan_torch.train.step import DCVGAN
 
-    cout = load_config(ROOT / "configs" / f"{FLAGSHIP}.yml").cgen.ngf
+    flagship = load_config(ROOT / "configs" / f"{FLAGSHIP}.yml").cgen.ngf
+    wide = load_config(ROOT / "configs" / f"{WIDE_CGEN}.yml").cgen.ngf
     errs, rows = [], []
-    for cin in (1, 2):
+    for cin, cout in ((1, flagship), (2, flagship), (1, wide)):
         errs.append(check_inconv(N_FRAMES, cin, 64, 64, cout))
         x, wt = inconv_inputs(N_FRAMES, cin, 64, 64, cout, seed=9)
-        row = {"site": f"cgen.inconv (Cin {cin})", "N": N_FRAMES, "Cin": cin, "Cout": cout,
+        row = {"site": f"cgen.inconv (Cin {cin}, Cout {cout})", "N": N_FRAMES, "Cin": cin, "Cout": cout,
+               "instance": instance(cin, cout, 64),
                "kernel_ms": cuda_ms(lambda: inconv3x3(x, wt)),
                "library_ms": cuda_ms(lambda: F.conv2d(x, wt, padding=1)),
                "plain_ms": cuda_ms(lambda: reference_inconv3x3(x, wt)),
@@ -1161,19 +1228,30 @@ def phase_inconv(card: str) -> dict:
     torch.cuda.empty_cache()
 
     counts = {}
-    for name, chunks in ((FLAGSHIP, 2), ("isogd-flow", 2), ("surreal-segm", 2)):
+    for name, chunks in ((FLAGSHIP, 2), ("isogd-flow", 2), ("surreal-segm", 2), (WIDE_CGEN, 2)):
         cfg = load_config(ROOT / "configs" / f"{name}.yml")
         gan = DCVGAN(cfg)
         served = gan.init_state(cfg.seed).generators()
-        inconv3x3.launches = 0
+        inconv3x3.launches = fused_norm_act_conv.launches = fused_norm_act_up_conv.launches = 0
+        inconv3x3.instances.clear()
         stats = serve(gan, served, 256, 4, chunks, Sink("null", None, cfg.geometric_info.name, False), seed=0)
         torch.cuda.synchronize()
         counts[name] = inconv3x3.launches
-        want = 0 if name == "surreal-segm" else 4 * (chunks + 1)  # serve()'s warm-up chunk is a chunk too
+        rounds = 4 * (chunks + 1)  # serve()'s warm-up chunk is a chunk too
+        want = 0 if name == "surreal-segm" else rounds
         print(f"{name} serve: {counts[name]} inconv3x3 launches for {chunks + 1} chunks of 4 rounds "
-              f"(warm-up included; expected {want}), {stats['value']} videos/s", flush=True)
+              f"(warm-up included; expected {want}) by instance {json.dumps(dict(inconv3x3.instances))}, "
+              f"{stats['value']} videos/s", flush=True)
         if counts[name] != want:
             raise AssertionError(f"{name}: expected {want} inconv3x3 launches, counted {counts[name]}")
+        if name == WIDE_CGEN:
+            # a round: cgen's five down sites; ggen's four and cgen's six up sites
+            got = (fused_norm_act_conv.launches, fused_norm_act_up_conv.launches)
+            print(f"{name} serve: {got[0]} fused_norm_act_conv and {got[1]} fused_norm_act_up_conv launches "
+                  f"for {rounds} rounds (expected {5 * rounds} and {10 * rounds}: 20 and 40 a chunk)", flush=True)
+            if got != (5 * rounds, 10 * rounds):
+                raise AssertionError(f"{name}: expected {5 * rounds} and {10 * rounds} fused launches, counted {got}")
+            counts[f"{name}.fused"] = got
         del gan, served
         torch.cuda.empty_cache()
     return {"name": "inconv3x3", "source": "dcvgan_torch/csrc/inconv.cu", "replaces": None,
@@ -3859,6 +3937,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s ({json.dumps({k: round(v, 1) for k, v in built.items()})})",
           flush=True)
 
+    if sys.argv[1:2] == ["--fused-block"]:  # that phase alone (fused_norm_act_conv)
+        print(json.dumps({"fused_block": phase_kernels()}))
+        return 0
     if sys.argv[1:2] == ["--fused-up"]:  # that phase alone
         print(json.dumps({"fused_up": phase_fused_up(card)}))
         return 0

@@ -24,7 +24,7 @@
 //
 // - bf16 (route "tma", the serving path; the section "TMA" below): a
 //   persistent, warp-specialised kernel. Tiles of 128 output pixels x up to
-//   128 output channels; one producer thread streams the input rows of a
+//   192 output channels; one producer thread streams the input rows of a
 //   tile (64 channels a stage) and the weights (one tap x 64 channels a
 //   stage) by TMA into mbarrier rings; seven transform warps apply the
 //   prologue in place once per staged element and send the owned rows to
@@ -173,9 +173,10 @@ constexpr int kBM = 128;         // output pixels per tile
 constexpr int kRB = 128;         // bytes of one staged pixel or weight row: TMA's widest swizzle
 constexpr int kConsumers = 256;  // two warpgroups
 // Two consumer warpgroups, one producer warp and seven transform warps: with
-// at most 128 output channels a tile, the consumers' 64 f32 accumulators
+// at most 192 output channels a tile, the consumers' 96 f32 accumulators
 // leave registers for two more warpgroups (setmaxnreg: the launch gives 128 a
-// thread; consumers take 160, the others keep 96).
+// thread; consumers take 160, the others keep 96; ptxas spills nothing at
+// 192).
 constexpr int kThreads = 512;
 constexpr int kTransformWarps = kThreads / 32 - kConsumers / 32 - 1;
 constexpr int kAuxRegs = 96, kConsumerRegs = 160;
@@ -190,9 +191,11 @@ template <typename T>
 constexpr int kParts = kF32<T> ? 2 : 1;  // weight parts per stage: f32 holds hi and lo
 // output channels per tile at most. f32 keeps two accumulators and a tap's
 // split A fragments, double-buffered; at 128 channels that spills (ptxas
-// allocates 128 registers a thread under this launch, setmaxnreg or not)
+// allocates 128 registers a thread under this launch, setmaxnreg or not).
+// bf16 takes 192, one tile for a Cout of 192 (cgen ngf 96's down1), so that
+// its A is gathered and multiplied once an M tile, not three times
 template <typename T>
-constexpr int kMaxBN = kF32<T> ? 64 : 128;
+constexpr int kMaxBN = kF32<T> ? 64 : 192;
 
 struct Params {
   const float* scale;
@@ -679,8 +682,14 @@ int launch_bn(int bn, const CUtensorMap& tm_x, const CUtensorMap& tm_w, const CU
     case 16: return launch<T, 16>(tm_x, tm_w, tm_xn, p, grid, smem, s);
     case 32: return launch<T, 32>(tm_x, tm_w, tm_xn, p, grid, smem, s);
     case 64: return launch<T, 64>(tm_x, tm_w, tm_xn, p, grid, smem, s);
+    case 96:  // bf16, Cout 96 or 192: whole tiles where 64 would triple the gathers
+      if constexpr (!kF32<T>) return launch<T, 96>(tm_x, tm_w, tm_xn, p, grid, smem, s);
+      return static_cast<int>(cudaErrorInvalidValue);
     case 128:
-      if constexpr (kMaxBN<T> == 128) return launch<T, 128>(tm_x, tm_w, tm_xn, p, grid, smem, s);
+      if constexpr (!kF32<T>) return launch<T, 128>(tm_x, tm_w, tm_xn, p, grid, smem, s);
+      return static_cast<int>(cudaErrorInvalidValue);
+    case 192:
+      if constexpr (!kF32<T>) return launch<T, 192>(tm_x, tm_w, tm_xn, p, grid, smem, s);
       return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

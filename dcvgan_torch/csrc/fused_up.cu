@@ -41,8 +41,10 @@
 // stage, then store the tile's rows at their output pixels, only the real
 // channels (Cout of 1, 2 or 3 runs on 16-wide tiles).
 // A unit is 128 or 256 input positions (one or two m-blocks of 64 rows a
-// warpgroup) x one or all four output phases x up to 128 output channels;
-// the host picks the shape per call (ops/fused_up.py: plan).
+// warpgroup) x one or all four output phases x up to 128 output channels,
+// or two m-blocks of 96 (the ngf-96 colour generator's up stages, 96 f32
+// accumulators a thread and no spill); the host picks the shape per call
+// (ops/fused_up.py: plan).
 //
 // What holds it on an H100 (bf16, N = 4096 frames; measured, PERF.md): at
 // the small-K, small-Cout stages, the consumers' fixed cost per gathered
@@ -90,7 +92,7 @@ struct Params {
   const float* shift;
   bf16* out;
   const int* tiles;  // n_units rows of kTileColumns: the host's tile table
-  int n, h, w, c1, cout;
+  int n, h, w, c1, c2, cout;
   int chunks1, chunks;  // x's 64-channel chunks; x's and the skip's
   int region_stages, w_stages, region_rows;
   int resident;  // 1: the CTA's weights stay in shared memory (see the note above the kernel)
@@ -234,9 +236,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     fused_up_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_s,
                     const __grid_constant__ CUtensorMap tm_w, const Params p) {
   using G = Geometry<S, P>;
-  static_assert(P * MB * BN <= 128, "P x MB accumulators of 64 x BN f32 in the consumers' registers");
+  static_assert(P * MB * BN <= 128 || (S == 2 && P == 1 && MB == 2 && BN == 96),
+                "P x MB accumulators of 64 x BN f32 in the consumers' registers");
   // A buffers in flight: four where the accumulators leave room
   constexpr int NB = P * MB * BN <= 32 ? 4 : 2;
+  // the unit of two m-blocks x 96 channels (the ngf-96 colour generator's
+  // sites, whose channel runs of 96 and 192 end inside a chunk) skips the k
+  // steps past a run's end, which multiply the box's zero fill by zero
+  // weights; every other instance runs all four k steps of every chunk
+  constexpr bool kRunEnds = MB == 2 && BN == 96;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem =
       reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -434,6 +442,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_wait(r_ready(rs), rph);
         const uint32_t region_addr = sbase + rs * p.region_bytes;
         const uint64_t wdesc = desc0 + static_cast<uint64_t>(cc * G::kStageTaps * desc_stage);
+        // k steps of 16 channels that hold some of the chunk's run (x's or the skip's)
+        const int live = cc < p.chunks1 ? p.c1 - cc * kCK : p.c2 - (cc - p.chunks1) * kCK;
+        const int nk = kRunEnds ? min(4, (live + 15) / 16) : 4;
 #pragma unroll
         for (int o = 0; o < NO; ++o) {
           // P = 1: resident stage cc * taps + o, or the ring's next stage
@@ -447,11 +458,13 @@ __global__ void __launch_bounds__(kThreads, 1)
             uint32_t(&fa)[4][4] = af[(o * MB + mb) % NB];
             const uint32_t a = toff[mb][o] >= 0 ? region_addr + static_cast<uint32_t>(toff[mb][o]) : zero_addr;
 #pragma unroll
-            for (int kk = 0; kk < 4; ++kk) ldmatrix_x4(fa[kk], a ^ (32u * kk));
+            for (int kk = 0; kk < 4; ++kk)
+              if (kk < nk) ldmatrix_x4(fa[kk], a ^ (32u * kk));
             wgmma_fence();
             if constexpr (P == 1) {
 #pragma unroll
-              for (int kk = 0; kk < 4; ++kk) wgmma_rs<BN>(acc[mb], fa[kk], desc1 + 2 * kk, 1);
+              for (int kk = 0; kk < 4; ++kk)
+                if (kk < nk) wgmma_rs<BN>(acc[mb], fa[kk], desc1 + 2 * kk, 1);
             } else {
               // every (phase, tap) that reads offset (dy, dx): phase (py, px)
               // with tap (i, j) = (py - dy, px - dx) in {0, 1}^2, weight tap
@@ -567,8 +580,9 @@ int launch_bn(int bn, const CUtensorMap& tm_x, const CUtensorMap& tm_s, const CU
     case 64:
       if constexpr (P * MB <= 2) return launch<S, P, MB, 64>(tm_x, tm_s, tm_w, p, grid, smem, s);
       return static_cast<int>(cudaErrorInvalidValue);
-    case 96:  // Cout 96 or 192: whole 96-channel tiles where 128 would leave a quarter empty
-      if constexpr (P * MB == 1) return launch<S, P, MB, 96>(tm_x, tm_s, tm_w, p, grid, smem, s);
+    case 96:  // whole 96-channel tiles where 128 would leave a quarter empty; two m-blocks of them (k4 s2)
+      if constexpr (P * MB == 1 || (S == 2 && P == 1))
+        return launch<S, P, MB, 96>(tm_x, tm_s, tm_w, p, grid, smem, s);
       return static_cast<int>(cudaErrorInvalidValue);
     case 128:
       if constexpr (P * MB == 1) return launch<S, P, MB, 128>(tm_x, tm_s, tm_w, p, grid, smem, s);
@@ -606,7 +620,8 @@ int fused_up_conv(const void* x, const void* skip, const void* scale, const void
   // units of one M tile: its phase groups x Cout tiles
   const int group = (stride == 2 ? 4 / phases : 1) * ((cout + bn - 1) / bn);
   const bool ok = stride == S && (phases == 1 || (stride == 2 && phases == 4 && resident)) &&
-                  (mblocks == 1 || mblocks == 2) && phases * mblocks * bn <= 128 && c1 > 0 && c1 % 8 == 0 && c2 >= 0 && c2 % 8 == 0 &&
+                  (mblocks == 1 || mblocks == 2) && (phases * mblocks * bn <= 128 || (stride == 2 && phases == 1 && bn == 96)) &&
+                  c1 > 0 && c1 % 8 == 0 && c2 >= 0 && c2 % 8 == 0 &&
                   (c2 == 0) == (skip == nullptr) && cout >= 1 && (bn == 16 || bn == 32 || bn == 64 || bn == 96 || bn == 128) &&
                   region_stages >= 2 && w_stages >= 1 && region_rows >= 1 && region_rows <= 256 && w_in <= 256 &&
                   n_units == m_tiles * group && grid >= 1 && grid <= n_units && tiles != nullptr && ptrs % 16 == 0;
@@ -648,6 +663,7 @@ int fused_up_conv(const void* x, const void* skip, const void* scale, const void
   p.h = h;
   p.w = w_in;
   p.c1 = c1;
+  p.c2 = c2;
   p.cout = cout;
   p.chunks1 = chunks1;
   p.chunks = chunks1 + chunks2;

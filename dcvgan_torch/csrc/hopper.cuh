@@ -104,6 +104,8 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint64_t layout_typ
 #define WG_D32 WG_D16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
 #define WG_D48 WG_D32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
 #define WG_D64 WG_D48 ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_D80 WG_D64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+#define WG_D96 WG_D80 ", %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
 
 // acc(64 x N, f32) (+)= A(64 x 16, bf16 registers) * B(16 x N, bf16 K-major in
 // shared memory); the product overwrites acc where `accumulate` is 0.
@@ -154,6 +156,17 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_D64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
       : WG_ACC4(0), WG_ACC4(4), WG_ACC4(8), WG_ACC4(12), WG_ACC4(16), WG_ACC4(20), WG_ACC4(24), WG_ACC4(28),
         WG_ACC4(32), WG_ACC4(36), WG_ACC4(40), WG_ACC4(44), WG_ACC4(48), WG_ACC4(52), WG_ACC4(56), WG_ACC4(60)
+      : WG_A4, "l"(desc), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96], const uint32_t (&a)[4], uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {" WG_D96 "}, {%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"
+      : WG_ACC4(0), WG_ACC4(4), WG_ACC4(8), WG_ACC4(12), WG_ACC4(16), WG_ACC4(20), WG_ACC4(24), WG_ACC4(28),
+        WG_ACC4(32), WG_ACC4(36), WG_ACC4(40), WG_ACC4(44), WG_ACC4(48), WG_ACC4(52), WG_ACC4(56), WG_ACC4(60),
+        WG_ACC4(64), WG_ACC4(68), WG_ACC4(72), WG_ACC4(76), WG_ACC4(80), WG_ACC4(84), WG_ACC4(88), WG_ACC4(92)
       : WG_A4, "l"(desc), "r"(accumulate));
 }
 

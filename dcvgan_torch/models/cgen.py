@@ -23,7 +23,8 @@ BatchNorm is a per-channel affine, so down block i (i >= 1) is exactly
 ``fused_norm_act_conv(raw_{i-1}, fold(bn_{i-1}), w_i)`` where ``raw_{i-1}``
 is block i-1's conv output; the activation the kernel feeds its product is
 written once to ``xn_out`` and kept as the skip ``hs[i]``. Only down0's conv
-and the last block's BatchNorm + LeakyReLU (at 1x1) run as plain ops.
+and the last block's BatchNorm + LeakyReLU (at 1x1) run as plain ops. The
+fused down path runs inside the span ``cgen.down``.
 
 In eval mode in bfloat16 on CUDA the up path runs on
 :func:`fused_norm_act_up_conv` (``_up_fused``): up block i (i >= 1) is
@@ -33,8 +34,9 @@ loads it and takes the skip as the rest of its input channels, so no
 BatchNorm, ReLU or concatenation runs as an op of its own; the outconv takes
 raw up5 and ``hs[0]`` the same way (k3 s1 p1), and tanh follows it. Up0's
 conv (on the 1x1 bottleneck with the latent, ngf*4 + dim_z channels) stays
-on cuDNN and writes raw. Float32, CPU, train-mode and GroupNorm forwards
-keep the unfused up path.
+on cuDNN and writes raw. The fused up path runs inside the span
+``cgen.up``. Float32, CPU, train-mode and GroupNorm forwards keep the
+unfused up path.
 
 Train mode (``train=True``) uses batch statistics, which depend on the conv
 output, so the down path runs unfused, as in the JAX package, whose kernel
@@ -205,12 +207,14 @@ class ColorVideoGenerator(nn.Module):
                 h = leaky_relu(blk.main[1](blk.main[0](h), train, update_stats), 0.2)
                 hs.append(h)
         else:
-            h = self._down_fused(hs)
+            with trace.span("cgen.down"):
+                h = self._down_fused(hs)
 
         n = len(self.down_blocks)
         h = torch.cat([h, z.to(dtype).reshape(z.shape[0], -1, 1, 1)], dim=1)
         if decodes_fused(h, train, self.norm):
-            return self._up_fused(h, hs)
+            with trace.span("cgen.up"):
+                return self._up_fused(h, hs)
         for i, blk in enumerate(self.up_blocks):
             if i > 0:
                 h = torch.cat([h, hs[n - i]], dim=1)

@@ -75,7 +75,14 @@ TMA_ROUTE = {torch.bfloat16: "tma", torch.float32: "tf32x3"}
 CHANNEL_MULTIPLE = {torch.bfloat16: 8, torch.float32: 4}
 # output channels per tile at most: f32 keeps two accumulators and a tap's
 # split A fragments in the consumers' registers (csrc/fused_block.cu: kMaxBN)
-MAX_BN = {torch.bfloat16: 128, torch.float32: 64}
+MAX_BN = {torch.bfloat16: 192, torch.float32: 64}
+# the tile widths the kernel is built for, widest first: a plan takes the
+# widest that divides Cout. bf16 goes to 192 for a Cout that 192 divides
+# (cgen ngf 96's 192 and 384: each M tile's A is then gathered and
+# transformed once or twice, not three times; PERF.md: at N = 4096 down1
+# 3.42 -> 1.75 ms, 64 -> 192 wide; 384 -> 384 at 8 px 0.75 -> 0.58, 128 ->
+# 192); ngf 64's 128 and 256 keep 128
+TILE_WIDTHS = (192, 128, 96, 64, 32, 16)
 REGION_STAGES = 2
 MAX_W_STAGES = 8
 MIN_W_STAGES = 2
@@ -89,7 +96,7 @@ class Plan:
     """How the kernel runs one call: its ``route`` and its schedule."""
 
     route: str  # "tma" (bf16) or "tf32x3" (f32)
-    bn: int  # output channels per tile (divides Cout, at most MAX_BN)
+    bn: int  # output channels per tile (one of TILE_WIDTHS that divides Cout, at most MAX_BN)
     w_stages: int  # weight ring depth: one tap x ROW_BYTES of channels x bn rows x parts each
     region_rows: int  # flattened input rows staged per tile and chunk
     grid: int  # CTAs, persistent: CTA b runs units b, b + grid, ...
@@ -183,10 +190,12 @@ def plan(
     if rows > 256:
         return None
     m_tiles = len(t)
-    bn = next(b for b in (128, 64, 32, 16) if cout % b == 0 and b <= MAX_BN[dtype])
-    # a small site splits Cout until the grid covers at least half the card
-    while m_tiles * (cout // bn) < sms // 2 and bn >= 32:
-        bn //= 2
+    widths = [b for b in TILE_WIDTHS if cout % b == 0 and b <= MAX_BN[dtype]]
+    # a small site takes narrower tiles until the grid covers at least half the card
+    i = 0
+    while m_tiles * (cout // widths[i]) < sms // 2 and i + 1 < len(widths):
+        i += 1
+    bn = widths[i]
     parts = WEIGHT_PARTS[dtype]
     fixed = _smem_bytes(w, bn, 0, rows, parts)
     stages = min(MAX_W_STAGES, (SMEM_LIMIT - fixed) // (_smem_bytes(w, bn, 1, rows, parts) - fixed))

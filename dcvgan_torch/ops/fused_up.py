@@ -132,10 +132,10 @@ def _smem_bytes(w: int, bn: int, region_stages: int, w_stages: int, rows: int) -
             + 8 * (3 * region_stages + 2 * w_stages))
 
 
-def _schedule(n, h, w, c1, c2, cout, route, unit_phases, mblocks, bn, sms) -> Optional[Plan]:
+def _schedule(n, h, w, c1, c2, cout, route, unit_phases, mblocks, bn, may_stream, sms) -> Optional[Plan]:
     """The plan of one unit shape (phases, m-blocks, at most ``bn`` output
-    channels a tile), or None where its weights must stay resident and do
-    not fit."""
+    channels a tile), its weights resident where they fit, else streamed
+    where ``may_stream``; else None."""
     t = _m_tiles(n, h, w, TILE_M * mblocks)
     rows = int((t[:, 3] - t[:, 2]).max()) + 1
     if rows > 256:
@@ -159,7 +159,7 @@ def _schedule(n, h, w, c1, c2, cout, route, unit_phases, mblocks, bn, sms) -> Op
         w_stages, grid = resident_stages, min(units, sms) // group * group
         region_stages = min(MAX_REGION_STAGES, (SMEM_LIMIT - fixed - w_stages * per_stage) // per_region)
         resident = True
-    elif unit_phases > 1 or mblocks > 1:
+    elif not may_stream:
         return None
     else:
         region_stages, resident, grid = MIN_REGION_STAGES, False, min(units, sms)
@@ -188,7 +188,16 @@ def plan(
     warpgroup where one tile of up to 64 channels covers Cout (half the
     weight bytes and staged halo rows a position); one m-block at up to
     128 channels, or at 96 where 96 divides Cout and 128 does not (ngf 96's
-    192 and 96: 1.84 -> 1.68 and 2.15 -> 1.50 ms at N = 4096, PERF.md)."""
+    192 and 96: 1.84 -> 1.68 and 2.15 -> 1.50 ms at N = 4096, PERF.md).
+
+    Before them, a k4s2 unit that takes a skip at a Cout that 96 divides
+    (the colour generator's up1-5 at cgen ngf 96) is two m-blocks of 96
+    channels, resident or streamed: half the weight bytes a position of
+    one m-block's, and the kernel runs only the k steps that hold channels
+    of runs that end inside a 64-channel chunk (ngf 96's 96 and 192). At N
+    = 4096, up1-5 0.32 / 1.31 / 3.18 / 3.36 / 8.73 -> 0.32 / 1.29 / 2.53 /
+    2.96 / 6.96 ms (PERF.md); the geometry generator's stages, which take
+    no skip, keep their plans."""
     if route not in PHASES:
         raise ValueError(f"unknown route {route!r}")
     if not aligned:
@@ -204,13 +213,17 @@ def plan(
         widest *= 2
     if cout % 128 and cout % WIDE_ODD == 0:  # Cout 96, 192, 288, ...: whole 96-channel tiles
         widest = WIDE_ODD
-    shapes = [(1, 1, widest)]  # (phases, m-blocks, channels a tile at most): the last, streamed if need be
+    # (phases, m-blocks, channels a tile at most, whether its weights may
+    # stream): the last always may
+    shapes = [(1, 1, widest, True)]
     if widest <= 64:
-        shapes.insert(0, (1, 2, widest))
+        shapes.insert(0, (1, 2, widest, False))
     if route == "k4s2":
-        shapes.insert(0, (4, 1, min(widest, 32)))
-    for unit_phases, mblocks, bn in shapes:
-        p = _schedule(n, h, w, c1, c2, cout, route, unit_phases, mblocks, bn, sms)
+        shapes.insert(0, (4, 1, min(widest, 32), False))
+    if route == "k4s2" and c2 > 0 and cout % WIDE_ODD == 0:
+        shapes.insert(0, (1, 2, WIDE_ODD, True))
+    for unit_phases, mblocks, bn, may_stream in shapes:
+        p = _schedule(n, h, w, c1, c2, cout, route, unit_phases, mblocks, bn, may_stream, sms)
         if p is not None:
             return p
     raise AssertionError("the last unit shape streams its weights: it always has a plan")

@@ -19,14 +19,17 @@ segmentation input takes ``ops/onehot_conv.py`` instead: a gather of weight
 rows by label, another algorithm.
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/inconv.cu`` and counts it in ``inconv3x3.launches``; a shape the
-kernel cannot take raises. On a CPU tensor it runs
-:func:`reference_inconv3x3`, the plain version (the conv and LeakyReLU as
-two ops). There is no fallback from the one to the other.
+``csrc/inconv.cu`` and counts it in ``inconv3x3.launches``, and by the
+template instance the source takes for its shape (:func:`instance`) in
+``inconv3x3.instances``; a shape the kernel cannot take raises. On a CPU
+tensor it runs :func:`reference_inconv3x3`, the plain version (the conv
+and LeakyReLU as two ops). There is no fallback from the one to the
+other.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -42,6 +45,9 @@ MAX_THREADS = 256  # the CUDA source's kMaxThreads: a CTA is channel groups x pi
 TILE_PIXELS = 512  # a tile is this many pixels of whole image rows, at least one row
 PAD = 8  # the CUDA source's kPad: zero elements on each side of a staged row
 SMEM_LIMIT = 232_448  # dynamic shared memory one block may opt into on Hopper
+# (Cin, Cout, W) of the CUDA source's instances specialised at compile time;
+# every other shape takes its Cin's generic instance
+SPECIALISED = ((1, 64, 64), (2, 64, 64))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +61,13 @@ class Plan:
 def channels_a_thread(cin: int) -> int:
     """Output channels one thread computes: its 9 * Cin of each in f32 registers."""
     return 8 if cin <= 2 else 4
+
+
+def instance(cin: int, cout: int, w: int) -> str:
+    """The template instance ``csrc/inconv.cu`` launches for this shape:
+    ``"<Cin>x<Cout>x<W>"`` where it is one of :data:`SPECIALISED`, else
+    ``"generic"``."""
+    return f"{cin}x{cout}x{w}" if (cin, cout, w) in SPECIALISED else "generic"
 
 
 def _smem_bytes(w: int, cin: int, rows: int) -> int:
@@ -143,7 +156,9 @@ def inconv3x3(x: torch.Tensor, w: torch.Tensor, slope: float = 0.01) -> torch.Te
     if err != 0:
         raise RuntimeError(f"inconv3x3 kernel launch failed: CUDA error {err}")
     inconv3x3.launches += 1
+    inconv3x3.instances[instance(cin, cout, wd)] += 1
     return out
 
 
 inconv3x3.launches = 0
+inconv3x3.instances = collections.Counter()

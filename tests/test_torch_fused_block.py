@@ -154,6 +154,10 @@ def cuda(monkeypatch):
     ],
 )
 def test_kernel_matches_plain_on_gpu(cuda, dtype, n, h, w, c, cout):
+    _held_to_plain(cuda, dtype, n, h, w, c, cout)
+
+
+def _held_to_plain(cuda, dtype, n, h, w, c, cout, bf16_atol=1e-4):
     x, scale, shift, w4 = _case(n, h, w, c, cout, seed=6, shift_offset=0.5)
     xt = nchw(x).to(cuda, dtype)
     st, sh = torch.from_numpy(scale).to(cuda), torch.from_numpy(shift).to(cuda)
@@ -169,9 +173,29 @@ def test_kernel_matches_plain_on_gpu(cuda, dtype, n, h, w, c, cout):
     want = port.reference_norm_act_conv(xt, st, sh, wt, 0.2, xn_out=xn_p)
     torch.cuda.synchronize()
     assert port.fused_norm_act_conv.launches == before + 1
-    atol, rtol = (1e-4, 2.0**-7) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    atol, rtol = (bf16_atol, 2.0**-7) if dtype == torch.bfloat16 else (1e-4, 1e-4)
     within(nhwc(got.cpu()), nhwc(want.cpu()), atol, rtol)
     assert torch.equal(xn_k, xn_p)
+
+
+# surreal-depth3's serving call (cgen ngf 96, bf16: C 96 a chunk and a half,
+# Cout 192 and 384 on 192-wide tiles, down5 on 128), and the 192-wide
+# tile's edges: a partial last tile with tiles across images and C 96, and
+# a partial last tile at K 6144
+WIDE_GPU_CASES = [(4096, 32, 32, 96, 192), (4096, 16, 16, 192, 384), (4096, 8, 8, 384, 384),
+                  (4096, 4, 4, 384, 384), (4096, 2, 2, 384, 384), (1000, 6, 10, 96, 192), (300, 8, 8, 384, 384)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,w,c,cout", WIDE_GPU_CASES)
+def test_wide_tiles_match_plain_on_gpu(cuda, n, h, w, c, cout):
+    # The absolute term grows with K = 16 C: each wgmma k step truncates its
+    # f32 sum, so near 0 the kernel's sum drifts from cuDNN's by up to K / 16
+    # truncations at the partial sums' size. 1e-4 holds K <= 4096 (ngf 64);
+    # K = 6144 (C 384) takes 1.5e-4. With the +0.5 shift, one output of 25M
+    # at 8 px reads 2.04e-4 where cuDNN reads 0.99e-4 and float64 1.17e-4,
+    # the same on 128- and 192-wide tiles and on the kernel before them.
+    _held_to_plain(cuda, torch.bfloat16, n, h, w, c, cout, bf16_atol=1e-4 * max(1.0, 16 * c / 4096))
 
 
 # ---- the TMA kernel's schedule (ops/fused_block.py: plan, tile_table)
@@ -187,9 +211,11 @@ def _cgen_sites(ngf, image_size=64):
 
 
 FLAGSHIP_SITES = _cgen_sites(64)
+# surreal-depth3's (cgen ngf 96): 96 -> 192 at 32 px, then 192 -> 384 and 384 -> 384
+WIDE_CGEN_SITES = _cgen_sites(96)
 # small N, so that tiles are partial (N*OH*OW not a multiple of 128) and
 # tile counts odd
-SCHEDULE_CASES = [(3, h, h, c, co) for h, c, co in FLAGSHIP_SITES] + [
+SCHEDULE_CASES = [(3, h, h, c, co) for h, c, co in FLAGSHIP_SITES + WIDE_CGEN_SITES] + [
     (300, 2, 2, 256, 256),  # down5: 2x2 input, 3 tiles
     (5, 4, 12, 64, 64),  # W != H, OW < 8
     (7, 6, 6, 8, 16),  # C = 8 (one 16-channel chunk, half of it the box's zero fill)
@@ -291,13 +317,13 @@ def _fits_shared_memory(ngf, n, dtype):
         assert p.smem == 1024 + 2 * region + p.w_stages * parts * p.bn * 128 + 128 + 8 * (6 + 2 * p.w_stages)
 
 
-@pytest.mark.parametrize("ngf", [8, 32, 64])
+@pytest.mark.parametrize("ngf", [8, 32, 64, 96])
 @pytest.mark.parametrize("n", [16, 320, 4096])
 def test_plan_fits_shared_memory_at_every_cgen_site(ngf, n):
     _fits_shared_memory(ngf, n, torch.bfloat16)
 
 
-@pytest.mark.parametrize("ngf", [8, 32, 64])
+@pytest.mark.parametrize("ngf", [8, 32, 64, 96])
 @pytest.mark.parametrize("n", [16, 320, 4096])
 def test_f32_plan_fits_shared_memory_at_every_cgen_site(ngf, n):
     _fits_shared_memory(ngf, n, torch.float32)
@@ -329,6 +355,38 @@ def test_every_config_cgen_site_in_f32_takes_the_tf32x3_route():
         for frames in (n, 25 * 16, 4096):  # a batch, log_samples' round, the flagship serve call
             p = port.plan(frames, h, h, c, cout, torch.float32)
             assert p.route == "tf32x3", (name, frames, h, c, cout, p)
+
+
+# mug-depth's five bf16 plans at N = 4096 (its serving call), field for
+# field: a change for another configuration's shapes leaves these as they are
+FLAGSHIP_PLANS = [
+    ("tma", 128, 5, 17, 132, 222464, 8192, 8192),
+    ("tma", 128, 6, 32, 132, 230672, 2048, 4096),
+    ("tma", 128, 6, 64, 132, 230672, 512, 1024),
+    ("tma", 128, 6, 128, 132, 230672, 128, 256),
+    ("tma", 64, 8, 256, 128, 197936, 32, 128),
+]
+
+
+@pytest.mark.parametrize("site,want", list(zip(FLAGSHIP_SITES, FLAGSHIP_PLANS)),
+                         ids=[f"h{h}-{c}-{co}" for h, c, co in FLAGSHIP_SITES])
+def test_flagship_plans_are_pinned(site, want):
+    h, c, cout = site
+    p = port.plan(4096, h, h, c, cout, torch.bfloat16)
+    assert (p.route, p.bn, p.w_stages, p.region_rows, p.grid, p.smem, p.m_tiles, p.units) == want
+
+
+def test_bf16_plans_take_192_wide_tiles_where_192_divides_cout():
+    plans = [port.plan(4096, h, h, c, co, torch.bfloat16) for h, c, co in WIDE_CGEN_SITES]
+    # down1-4 at ngf 96: one or two whole 192-wide tiles; down5's 32 M tiles take 128 for the grid
+    assert [p.bn for p in plans] == [192, 192, 192, 192, 128]
+    assert all(p.w_stages >= port.MIN_W_STAGES and p.smem <= port.SMEM_LIMIT for p in plans)
+    assert port.plan(4096, 32, 32, 96, 192, torch.float32).bn == 64  # f32 keeps its 64-channel tiles
+    assert port.plan(4096, 8, 8, 96, 96, torch.bfloat16).bn == 96
+    assert port.plan(16, 32, 32, 96, 192, torch.bfloat16).bn == 64  # a small grid narrows the tiles
+    for h, c, co in WIDE_CGEN_SITES + [(6, 96, 192)]:
+        for n in (3, 300, 1000):
+            _tiles_partition_the_output_once(n, h, h + (4 if h == 6 else 0), c, co, torch.bfloat16)
 
 
 def test_plan_is_none_for_shapes_the_tma_kernel_cannot_take():

@@ -51,6 +51,17 @@ SEGM_SITES = [
     (16, 192, 0, 96, "k4s2"),
     (32, 96, 0, 25, "k4s2"),
 ]
+# surreal-depth3's six cgen sites (cgen ngf 96): up1-2 K 768 with a skip,
+# up3 Cout 192 on a skip-concatenated input, up4-5 and the outconv on
+# channel runs of 192 and 96 (a chunk and a half each)
+WIDE_CGEN_SITES = [
+    (2, 384, 384, 384, "k4s2"),
+    (4, 384, 384, 384, "k4s2"),
+    (8, 384, 384, 192, "k4s2"),
+    (16, 192, 192, 96, "k4s2"),
+    (32, 96, 96, 96, "k4s2"),
+    (64, 96, 96, 3, "k3s1"),
+]
 # other shapes: Cout 1, 2, 3, no skip, channel runs that are not whole
 # 64-channel chunks, W != H, images smaller than a tile's rows, borders
 EDGE_SITES = [
@@ -118,8 +129,9 @@ def _emulated(x, scale, shift, w, skip, route):
     return out
 
 
-@pytest.mark.parametrize("site", SERVING_SITES + SEGM_SITES,
-                         ids=[f"{s[4]}-h{s[0]}-{s[1]}+{s[2]}-{s[3]}" for s in SERVING_SITES + SEGM_SITES])
+@pytest.mark.parametrize("site", SERVING_SITES + SEGM_SITES + WIDE_CGEN_SITES,
+                         ids=[f"{s[4]}-h{s[0]}-{s[1]}+{s[2]}-{s[3]}"
+                              for s in SERVING_SITES + SEGM_SITES + WIDE_CGEN_SITES])
 def test_emulated_kernel_matches_the_materialised_conv_at_the_serving_sites(site):
     h, c1, c2, cout, route = site
     n = 2 if h <= 32 else 1
@@ -188,7 +200,8 @@ def test_rejects_what_the_kernel_does_not_take():
 
 # ---- the planner (ops/fused_up.py: plan, tile_table), as pure Python
 
-SCHEDULE_CASES = [(3, h, h, c1, c2, co, r) for h, c1, c2, co, r in SERVING_SITES + SEGM_SITES] + [
+SCHEDULE_CASES = [(3, h, h, c1, c2, co, r)
+                  for h, c1, c2, co, r in SERVING_SITES + SEGM_SITES + WIDE_CGEN_SITES] + [
     (300, 2, 2, 256, 256, 256, "k4s2"),
     (5, 4, 12, 64, 0, 64, "k4s2"),
     (7, 6, 6, 8, 0, 3, "k4s2"),
@@ -270,8 +283,8 @@ def test_plan_takes_every_site_of_every_width_in_shared_memory(ngf, geometric_in
             assert p.region_rows <= 256 and p.bn in (16, 32, 64, 96, 128)
 
 
-@pytest.mark.parametrize("n,h,w,c1,c2,cout,route", SCHEDULE_CASES + [(4096, h, h, c1, c2, co, r)
-                                                                     for h, c1, c2, co, r in SERVING_SITES + SEGM_SITES])
+@pytest.mark.parametrize("n,h,w,c1,c2,cout,route", SCHEDULE_CASES + [
+    (4096, h, h, c1, c2, co, r) for h, c1, c2, co, r in SERVING_SITES + SEGM_SITES + WIDE_CGEN_SITES])
 def test_resident_plans_keep_each_cta_on_one_phase_and_cout_tile(n, h, w, c1, c2, cout, route):
     p = up.plan(n, h, w, c1, c2, cout, route)
     if not p.resident:
@@ -323,6 +336,26 @@ def test_flagship_plans_are_pinned(site, want):
             p.m_tiles, p.units) == want
 
 
+# surreal-segm's four ggen plans at N = 4096, field for field after the
+# route (its cgen, at ngf 64, is mug-depth's)
+SEGM_PLANS = [
+    (1, 1, 128, 2, 12, False, 32, 132, 230768, 512, 6144),
+    (1, 1, 96, 2, 12, False, 16, 132, 181616, 2048, 16384),
+    (1, 1, 96, 4, 12, True, 9, 132, 222624, 8192, 32768),
+    (4, 1, 32, 4, 32, True, 6, 132, 231136, 32768, 32768),
+]
+
+
+@pytest.mark.parametrize("site,want", list(zip(SEGM_SITES, SEGM_PLANS)),
+                         ids=[f"{s[4]}-h{s[0]}-{s[1]}+{s[2]}-{s[3]}" for s in SEGM_SITES])
+def test_surreal_segm_plans_are_pinned(site, want):
+    h, c1, c2, cout, route = site
+    p = up.plan(4096, h, h, c1, c2, cout, route)
+    assert p.route == route
+    assert (p.phases, p.mblocks, p.bn, p.region_stages, p.w_stages, p.resident, p.region_rows, p.grid, p.smem,
+            p.m_tiles, p.units) == want
+
+
 def test_ngf96_plans_take_whole_96_channel_tiles():
     plans = [up.plan(4096, h, h, c1, c2, co, r) for h, c1, c2, co, r in SEGM_SITES]
     # K 768 at Cout 384: three whole 128-channel tiles, streamed, as at K = 512
@@ -333,6 +366,20 @@ def test_ngf96_plans_take_whole_96_channel_tiles():
     assert (plans[3].phases, plans[3].bn, plans[3].resident) == (4, 32, True)
     # a small grid splits a 96-channel tile into 32-channel ones
     assert up.plan(2, 2, 2, 192, 0, 96).bn in (16, 32)
+
+
+def test_wide_cgen_plans_take_two_96_channel_m_blocks():
+    plans = [up.plan(4096, h, h, c1, c2, co, r) for h, c1, c2, co, r in WIDE_CGEN_SITES]
+    # up1-5: a skip at a Cout that 96 divides: two m-blocks of 96 channels, the weights streamed
+    assert [(p.phases, p.mblocks, p.bn, p.resident) for p in plans[:5]] == [(1, 2, 96, False)] * 5
+    assert all(p.region_stages == up.MIN_REGION_STAGES and p.smem <= up.SMEM_LIMIT for p in plans[:5])
+    # the outconv (Cout 3) keeps the k3 unit of mug-depth's outconv
+    assert (plans[5].phases, plans[5].mblocks, plans[5].bn, plans[5].resident) == (1, 2, 16, True)
+    # where two m-blocks of 96 channels' weights fit, they stay resident; small grids split Cout
+    assert up.plan(200, 9, 9, 48, 48, 96).resident
+    assert up.plan(40, 6, 10, 96, 192, 96).bn == 32
+    # without a skip (the geometry generator's stages), the unit is as before
+    assert up.plan(4096, 8, 8, 384, 0, 192).mblocks == 1
 
 
 def test_plan_splits_cout_for_small_grids_and_pads_small_cout_to_16():
@@ -520,7 +567,12 @@ def cuda():
 # and persistent CTAs that each walk several units
 GPU_CASES = SCHEDULE_CASES + [(512, 4, 4, 512, 0, 256, "k4s2"), (64, 32, 32, 64, 64, 64, "k4s2"),
                               (512, 16, 16, 128, 128, 64, "k4s2"), (32, 64, 64, 64, 64, 3, "k3s1")] + [
-    (4096, h, h, c1, c2, co, r) for h, c1, c2, co, r in SEGM_SITES]
+    (4096, h, h, c1, c2, co, r) for h, c1, c2, co, r in SEGM_SITES + WIDE_CGEN_SITES] + [
+    # two m-blocks of 96 channels at their edges: x and skip runs that end
+    # at other points of a chunk, tiles across images and a partial last
+    # tile, several units a CTA, weights resident, Cout split for a small grid
+    (300, 5, 7, 96, 96, 192, "k4s2"), (200, 9, 9, 96, 96, 96, "k4s2"), (512, 4, 4, 384, 384, 384, "k4s2"),
+    (200, 9, 9, 48, 48, 96, "k4s2"), (40, 6, 10, 96, 192, 96, "k4s2"), (1000, 8, 8, 96, 192, 96, "k4s2")]
 
 
 @pytest.mark.gpu

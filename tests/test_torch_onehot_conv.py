@@ -277,7 +277,8 @@ def test_the_op_runs_inside_its_span(onehot_on_cpu):
         names = [r.name for r in trace.records(at)]
     finally:
         trace.disable()
-    assert names == ["cgen.onehot_conv"] and len(onehot_on_cpu.calls) == 1
+    # the one-hot input's span, then the fused down path's (the CPU runs its plain version)
+    assert names == ["cgen.onehot_conv", "cgen.down"] and len(onehot_on_cpu.calls) == 1
 
 
 # ---- the CUDA kernel against its plain version (on the card)

@@ -135,11 +135,16 @@ def test_serve_records_each_chunks_spans(tracing):
     order."""
     gan, state = _gan()
     serve(gan, state, 2, 2, 3, Sink("null", None, "depth", False), seed=3)
-    recs = tracing.records()
+    recs = [r for r in tracing.records() if r.name.startswith("serve.")]
     launch = ["serve.chunk.enqueue", "serve.chunk.copy_issue"]
     wait = ["serve.chunk.wait"]
     assert [r.name for r in recs] == launch + wait + launch + launch + wait + launch + wait + wait
     assert all(r.start_ns <= r.end_ns and r.parent is None and r.id is None for r in recs)
+    # the colour generator's own spans lie inside the enqueues: its fused
+    # down path once a round (2 rounds x 4 chunks), the CPU running its plain version
+    inner = [r for r in tracing.records() if not r.name.startswith("serve.")]
+    assert [r.name for r in inner] == ["cgen.down"] * 8
+    assert {r.parent for r in inner} == {"serve.chunk.enqueue"}
 
 
 def test_generation_server_replays_an_explicit_seed():

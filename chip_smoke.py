@@ -696,10 +696,15 @@ UP_EDGE_CASES = [
     ("Cout 40, tiles across images", 40, 6, 10, 64, 64, 40, "k4s2"),
     ("k3 Cout 3, W != H", 3, 5, 7, 8, 16, 3, "k3s1"),
     ("k3 Cout 2, a column image", 5, 6, 1, 8, 8, 2, "k3s1"),
+    ("k3 Cout 1, runs inside a k step", 2, 6, 5, 16, 8, 1, "k3s1"),
+    ("k3 Cout 8, 72 tap columns", 2, 4, 9, 24, 40, 8, "k3s1"),
+    ("k3 no skip, rows in column strips", 1, 7, 70, 24, 0, 3, "k3s1"),
+    ("k3 96 + 96, rows in column strips", 3, 5, 200, 96, 96, 2, "k3s1"),
+    ("k3 ranges cut inside frames", 133, 64, 64, 64, 64, 3, "k3s1"),
     ("several units a CTA, k4", 512, 4, 4, 512, 0, 256, "k4s2"),
     ("several four-phase units a CTA", 64, 32, 32, 64, 64, 64, "k4s2"),
     ("several two-m-block units a CTA, k4", 512, 16, 16, 128, 128, 64, "k4s2"),
-    ("several two-m-block units a CTA, k3", 32, 64, 64, 64, 64, 3, "k3s1"),
+    ("k3 a CTA walks several frames", 32, 64, 64, 64, 64, 3, "k3s1"),
 ]
 
 
@@ -814,6 +819,7 @@ def phase_fused_up(card: str) -> dict:
 
     from dcvgan_torch.cli.serve import make_chunk_fn
     from dcvgan_torch.config import load_config
+    from dcvgan_torch.ops import outconv
     from dcvgan_torch.ops.fused_up import fused_norm_act_up_conv, plan, reference_norm_act_up_conv
     from dcvgan_torch.train.step import DCVGAN
 
@@ -850,8 +856,12 @@ def phase_fused_up(card: str) -> dict:
         }
         row["bound_ms"], row["bound_by"] = up_bound(N_FRAMES, h, c1, c2, cout, route)
         row["of_bound"] = row["bound_ms"] / row["kernel_ms"]
-        p = plan(N_FRAMES, h, h, c1, c2, cout, route)
-        row["unit"] = f"{p.phases}x{p.mblocks}x{p.bn} {'r' if p.resident else 's'}"
+        if route == "k3s1":  # the outconv's tap-partials kernel (ops/outconv.py)
+            p = outconv.plan(N_FRAMES, h, h, c1, c2, cout)
+            row["unit"] = f"rows n{p.bn} {p.stages} stages {p.slots} slots"
+        else:
+            p = plan(N_FRAMES, h, h, c1, c2, cout)
+            row["unit"] = f"{p.phases}x{p.mblocks}x{p.bn} {'r' if p.resident else 's'}"
         into = (segm_total if name.startswith("surreal.") else
                 wide_total if name.startswith(f"{WIDE_CGEN}.") else total)
         for k in keys:
@@ -861,6 +871,12 @@ def phase_fused_up(card: str) -> dict:
               flush=True)
         del x, skip, wt, xn, xin
         torch.cuda.empty_cache()
+    for row in rows:
+        if row["site"].endswith("cgen.outconv"):
+            print(f"time outconv {row['site']} {row['C'] // 2} + {row['C'] // 2} -> {row['Cout']} at N={N_FRAMES}: "
+                  f"kernel {row['kernel_ms']:.4f} ms, byte bound {row['bound_ms']:.4f} ({row['of_bound']:.1%} of it), "
+                  f"cuDNN conv alone {row['library_ms']:.4f}, unfused chain {row['chain_ms']:.4f} ({card})",
+                  flush=True)
     print(f"fused_norm_act_up_conv, ten sites a round at N={N_FRAMES}: kernel {total['kernel_ms']:.3f} ms, "
           f"bound {total['bound_ms']:.3f} ({total['bound_ms'] / total['kernel_ms']:.1%} of it), cuDNN conv on the "
           f"materialised input {total['library_ms']:.3f}, unfused chain {total['chain_ms']:.3f}, plain "

@@ -1,4 +1,4 @@
-// Fused BatchNorm affine + ReLU + U-Net skip + ConvTranspose2d for Hopper (sm_90a).
+// Fused BatchNorm affine + ReLU + U-Net skip + ConvTranspose2d k4 s2 p1 for Hopper (sm_90a).
 //
 // Replaces no Pallas kernel: the JAX package leaves the decoders' transposed
 // convs, the BatchNorm and ReLU between them and the colour generator's skip
@@ -8,7 +8,7 @@
 // `cat` copy per stage, each a round trip of the activation through device
 // memory. One decoder stage is one launch here:
 //
-//     out = conv_transpose2d(cat([relu(x * scale + shift), skip]), w, stride, padding)
+//     out = conv_transpose2d(cat([relu(x * scale + shift), skip]), w, stride=2, padding=1)
 //
 // on NHWC bf16 activations: `scale`/`shift` are the previous stage's
 // eval-mode BatchNorm folded per channel in f32, the activation is rounded
@@ -18,17 +18,15 @@
 // same inputs give the same bytes) and the output is the raw conv result in
 // bf16. The wrapper is ops/fused_up.py; it plans the schedule by shape.
 //
-// Two geometries, both a sum of stride-1 taps over the input:
-// - k4 s2 p1 (every decoder stage but the colour generator's last): output
-//   pixel (2a + py, 2b + px) is a 2x2 conv of the input around (a, b), one
-//   per output parity ("phase"): tap (i, j) reads input (a + py - i,
-//   b + px - j) with weight tap (2i + 1 - py, 2j + 1 - px);
-// - k3 s1 p1 (the colour generator's outconv): one phase of 9 taps, input
-//   (a + dy, b + dx) with the flipped weight tap (1 - dy, 1 - dx).
-// So each is an implicit GEMM: M = input positions, N = Cout, K = taps x
-// (C_x + C_skip). The weight is repacked once per weight version into a
-// (Cout, taps, K) row-major matrix (K-major for the tensor cores, each of x's
-// and the skip's channel runs padded to 64).
+// Every decoder stage but the colour generator's last is k4 s2 p1: output
+// pixel (2a + py, 2b + px) is a 2x2 conv of the input around (a, b), one per
+// output parity ("phase"): tap (i, j) reads input (a + py - i, b + px - j)
+// with weight tap (2i + 1 - py, 2j + 1 - px). So it is an implicit GEMM: M =
+// input positions, N = Cout, K = taps x (C_x + C_skip). The weight is
+// repacked once per weight version into a (Cout, taps, K) row-major matrix
+// (K-major for the tensor cores, each of x's and the skip's channel runs
+// padded to 64). The colour generator's outconv (k3 s1 p1 to 3 channels) is
+// another algorithm, in outconv.cu.
 //
 // The design is fused_block.cu's kernel (its notes say why), on the Hopper
 // layer both take from hopper.cuh: a persistent kernel of 512 threads walking
@@ -179,23 +177,23 @@ __device__ __forceinline__ Tile tile_of(int u, const Params& p) {
   return Tile{__ldg(row), __ldg(row + 1), __ldg(row + 2), __ldg(row + 3), __ldg(row + 4)};
 }
 
-// A unit computes P output phases of its positions (k4 s2: P = 1, the
-// tile table's phase, or P = 4, every phase; k3 s1: P = 1). Per chunk the
-// consumers gather A once per input offset (dy, dx) the unit reads (k4 s2
-// with P = 1: 4; with P = 4 or k3 s1: the 9 offsets of a 3x3 neighbourhood)
-// and run, for each (phase, weight tap) that reads it, the wgmmas into that
-// phase's accumulator: P = 4 gathers 9 offsets for 16 products.
-template <int S, int P>
+// A unit computes P output phases of its positions (P = 1, the tile
+// table's phase, or P = 4, every phase). Per chunk the consumers gather A
+// once per input offset (dy, dx) the unit reads (P = 1: 4; P = 4: the 9
+// offsets of a 3x3 neighbourhood) and run, for each (phase, weight tap) that
+// reads it, the wgmmas into that phase's accumulator: P = 4 gathers 9
+// offsets for 16 products.
+template <int P>
 struct Geometry {
-  static_assert((S == 1 && P == 1) || (S == 2 && (P == 1 || P == 4)), "k3 s1 with one phase, k4 s2 with 1 or 4");
-  static constexpr int kOffsets = (S == 2 && P == 1) ? 4 : 9;
-  static constexpr int kStageTaps = S == 1 ? 9 : 4 * P;  // weight stages a chunk
+  static_assert(P == 1 || P == 4, "one phase or all four");
+  static constexpr int kOffsets = P == 1 ? 4 : 9;
+  static constexpr int kStageTaps = 4 * P;  // weight stages a chunk
 };
 
 // Offset o of a unit of phase `phase` (P = 1) as (dy, dx).
-template <int S, int P>
+template <int P>
 __device__ __forceinline__ void offset_of(int o, int phase, int& dy, int& dx) {
-  if constexpr (S == 2 && P == 1) {
+  if constexpr (P == 1) {
     dy = (phase >> 1) - (o >> 1);
     dx = (phase & 1) - (o & 1);
   } else {
@@ -204,14 +202,12 @@ __device__ __forceinline__ void offset_of(int o, int phase, int& dy, int& dx) {
   }
 }
 
-// The weight tap (kh * k + kw) of a chunk's weight stage `idx`, which is the
-// order the producer loads them in: k3 s1: offset idx (the flipped tap);
-// k4 s2, P = 1: offset idx = (i, j) of `phase`; P = 4: tap idx itself.
-template <int S, int P>
+// The weight tap (kh * 4 + kw) of a chunk's weight stage `idx`, which is the
+// order the producer loads them in: P = 1: offset idx = (i, j) of `phase`;
+// P = 4: tap idx itself.
+template <int P>
 __device__ __forceinline__ int stage_tap(int idx, int phase) {
-  if constexpr (S == 1) {
-    return 8 - idx;
-  } else if constexpr (P == 1) {
+  if constexpr (P == 1) {
     const int py = phase >> 1, px = phase & 1, i = idx >> 1, j = idx & 1;
     return (2 * i + 1 - py) * 4 + (2 * j + 1 - px);
   } else {
@@ -231,12 +227,12 @@ __device__ __forceinline__ int stage_tap(int idx, int phase) {
 // MB: m-blocks of 64 rows a consumer warpgroup takes (a unit is MB * 128
 // input positions): 2 halves the weight bytes a product takes in and the
 // staged halo rows a position reads, at twice the accumulators.
-template <int S, int P, int MB, int BN>
+template <int P, int MB, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_up_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_s,
                     const __grid_constant__ CUtensorMap tm_w, const Params p) {
-  using G = Geometry<S, P>;
-  static_assert(P * MB * BN <= 128 || (S == 2 && P == 1 && MB == 2 && BN == 96),
+  using G = Geometry<P>;
+  static_assert(P * MB * BN <= 128 || (P == 1 && MB == 2 && BN == 96),
                 "P x MB accumulators of 64 x BN f32 in the consumers' registers");
   // A buffers in flight: four where the accumulators leave room
   constexpr int NB = P * MB * BN <= 32 ? 4 : 2;
@@ -318,7 +314,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (wu < p.n_units && ready(w_empty(ws), wph ^ 1)) {
           if (lane == 0) {
             mbar_expect_tx(w_full(ws), BN * kRB);
-            tma_load(wbase + ws * p.wstage_bytes, &tm_w, w_full(ws), wc * kCK, stage_tap<S, P>(wt_i, wt.phase),
+            tma_load(wbase + ws * p.wstage_bytes, &tm_w, w_full(ws), wc * kCK, stage_tap<P>(wt_i, wt.phase),
                      wt.n0);
           }
           if (++ws == p.w_stages) {
@@ -427,7 +423,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int o = 0; o < NO; ++o) {
           int dy, dx;
-          offset_of<S, P>(o, t.phase, dy, dx);
+          offset_of<P>(o, t.phase, dy, dx);
           const bool ok = in && a + dy >= 0 && a + dy < p.h && b + dx >= 0 && b + dx < p.w;
           toff[mb][o] = ok ? static_cast<int>(swz(static_cast<uint32_t>(a_off + (dy * p.w + dx) * kRB))) : -1;
         }
@@ -526,7 +522,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // epilogue: fragment (rows g and g + 8, columns 8j + 2q, +1) of each
       // m-block and phase to the rows' output pixels, the real channels only
       const int g = lane >> 2, cq = lane & 3;
-      const int ow = S * p.w;
+      const int ow = 2 * p.w;
       const bool pairs = (p.cout & 1) == 0;  // even Cout: 4-byte aligned pairs
 #pragma unroll
       for (int mb = 0; mb < MB; ++mb) {
@@ -538,8 +534,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int q = 0; q < P; ++q) {
             const int phase = P == 4 ? q : t.phase;
-            const int py = S == 2 ? phase >> 1 : 0, px = S == 2 ? phase & 1 : 0;
-            const long long pix = (static_cast<long long>(n) * S * p.h + S * a + py) * ow + S * b + px;
+            const int py = phase >> 1, px = phase & 1;
+            const long long pix = (static_cast<long long>(n) * 2 * p.h + 2 * a + py) * ow + 2 * b + px;
             bf16* o = p.out + pix * p.cout;
 #pragma unroll
             for (int j = 0; j < BN / 8; ++j) {
@@ -559,46 +555,44 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int S, int P, int MB, int BN>
+template <int P, int MB, int BN>
 int launch(const CUtensorMap& tm_x, const CUtensorMap& tm_s, const CUtensorMap& tm_w, const Params& p, int grid,
            int smem, cudaStream_t s) {
   const cudaError_t err =
-      cudaFuncSetAttribute(fused_up_kernel<S, P, MB, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(fused_up_kernel<P, MB, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_up_kernel<S, P, MB, BN>
+  fused_up_kernel<P, MB, BN>
       <<<static_cast<unsigned>(grid), kThreads, static_cast<size_t>(smem), s>>>(tm_x, tm_s, tm_w, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The instantiations the planner uses: P * MB * BN <= 128.
-template <int S, int P, int MB>
+template <int P, int MB>
 int launch_bn(int bn, const CUtensorMap& tm_x, const CUtensorMap& tm_s, const CUtensorMap& tm_w, const Params& p,
               int grid, int smem, cudaStream_t s) {
   switch (bn) {
-    case 16: return launch<S, P, MB, 16>(tm_x, tm_s, tm_w, p, grid, smem, s);
-    case 32: return launch<S, P, MB, 32>(tm_x, tm_s, tm_w, p, grid, smem, s);
+    case 16: return launch<P, MB, 16>(tm_x, tm_s, tm_w, p, grid, smem, s);
+    case 32: return launch<P, MB, 32>(tm_x, tm_s, tm_w, p, grid, smem, s);
     case 64:
-      if constexpr (P * MB <= 2) return launch<S, P, MB, 64>(tm_x, tm_s, tm_w, p, grid, smem, s);
+      if constexpr (P * MB <= 2) return launch<P, MB, 64>(tm_x, tm_s, tm_w, p, grid, smem, s);
       return static_cast<int>(cudaErrorInvalidValue);
-    case 96:  // whole 96-channel tiles where 128 would leave a quarter empty; two m-blocks of them (k4 s2)
-      if constexpr (P * MB == 1 || (S == 2 && P == 1))
-        return launch<S, P, MB, 96>(tm_x, tm_s, tm_w, p, grid, smem, s);
+    case 96:  // whole 96-channel tiles where 128 would leave a quarter empty; two m-blocks of them
+      if constexpr (P == 1) return launch<P, MB, 96>(tm_x, tm_s, tm_w, p, grid, smem, s);
       return static_cast<int>(cudaErrorInvalidValue);
     case 128:
-      if constexpr (P * MB == 1) return launch<S, P, MB, 128>(tm_x, tm_s, tm_w, p, grid, smem, s);
+      if constexpr (P * MB == 1) return launch<P, MB, 128>(tm_x, tm_s, tm_w, p, grid, smem, s);
       return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// One decoder stage of geometry S (the stride), with the schedule planned on
-// the host (dcvgan_torch/ops/fused_up.py: plan, tile_table). x (n, h, w, c1) and skip (n, h, w, c2, or
+// One k4 s2 p1 decoder stage, with the schedule planned on the host
+// (dcvgan_torch/ops/fused_up.py: plan, tile_table). x (n, h, w, c1) and skip (n, h, w, c2, or
 // null with c2 = 0) are NHWC bf16; scale and shift are (c1,) float32;
-// w_gemm is the packed weight (cout, taps, k_pad) bf16 with x's channels at
+// w_gemm is the packed weight (cout, 16, k_pad) bf16 with x's channels at
 // [0, c1) and the skip's at [64 * ceil(c1 / 64), ...), zeros between; out is
-// (n, stride * h, stride * w, cout) bf16. stride 2: k4 s2 p1, 16 taps;
-// stride 1: k3 s1 p1, 9 taps. `phases` output phases a unit (1, or 4 with
-// stride 2), `mblocks` m-blocks of 64 rows a warpgroup (a unit is 128 *
+// (n, 2 * h, 2 * w, cout) bf16. `phases` output phases a unit (1 or 4),
+// `mblocks` m-blocks of 64 rows a warpgroup (a unit is 128 *
 // mblocks input positions), bn output channels per tile, region_stages staged regions,
 // w_stages weight stages (with `resident`, a unit's chunks x taps, loaded
 // once a CTA), region_rows input rows per staged region, `tiles` the device
@@ -607,20 +601,19 @@ int launch_bn(int bn, const CUtensorMap& tm_x, const CUtensorMap& tm_s, const CU
 // is not this source's layout for the plan, -3 when libcuda has no
 // cuTensorMapEncodeTiled, -4 when a tensor map is refused, -5 when
 // region_rows is fewer than the rows a tile reads.
-template <int S>
 int fused_up_conv(const void* x, const void* skip, const void* scale, const void* shift, const void* w_gemm,
-                  void* out, int n, int h, int w_in, int c1, int c2, int cout, int stride, int phases, int mblocks,
-                  int bn, int region_stages, int w_stages, int resident, int region_rows, const void* tiles,
-                  int n_units, int grid, int smem, void* stream) {
+                  void* out, int n, int h, int w_in, int c1, int c2, int cout, int phases, int mblocks, int bn,
+                  int region_stages, int w_stages, int resident, int region_rows, const void* tiles, int n_units,
+                  int grid, int smem, void* stream) {
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(skip) |
                          reinterpret_cast<uintptr_t>(w_gemm) | reinterpret_cast<uintptr_t>(out);
   const int tile_m = kBM * mblocks;
   const long long m_tiles = (static_cast<long long>(n) * h * w_in + tile_m - 1) / tile_m;
-  const int taps = stride == 2 ? 16 : 9;
+  const int taps = 16;
   // units of one M tile: its phase groups x Cout tiles
-  const int group = (stride == 2 ? 4 / phases : 1) * ((cout + bn - 1) / bn);
-  const bool ok = stride == S && (phases == 1 || (stride == 2 && phases == 4 && resident)) &&
-                  (mblocks == 1 || mblocks == 2) && (phases * mblocks * bn <= 128 || (stride == 2 && phases == 1 && bn == 96)) &&
+  const int group = 4 / phases * ((cout + bn - 1) / bn);
+  const bool ok = (phases == 1 || (phases == 4 && resident)) &&
+                  (mblocks == 1 || mblocks == 2) && (phases * mblocks * bn <= 128 || (phases == 1 && bn == 96)) &&
                   c1 > 0 && c1 % 8 == 0 && c2 >= 0 && c2 % 8 == 0 &&
                   (c2 == 0) == (skip == nullptr) && cout >= 1 && (bn == 16 || bn == 32 || bn == 64 || bn == 96 || bn == 128) &&
                   region_stages >= 2 && w_stages >= 1 && region_rows >= 1 && region_rows <= 256 && w_in <= 256 &&
@@ -633,7 +626,7 @@ int fused_up_conv(const void* x, const void* skip, const void* scale, const void
   const int chunks1 = (c1 + kCK - 1) / kCK, chunks2 = (c2 + kCK - 1) / kCK;
   // resident weights: one stage per chunk and tap of a unit, and a grid that
   // keeps each CTA on one phase group and Cout tile
-  if (resident && (w_stages != (chunks1 + chunks2) * (stride == 1 ? 9 : 4 * phases) || grid % group != 0))
+  if (resident && (w_stages != (chunks1 + chunks2) * 4 * phases || grid % group != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const cuuint64_t k_pad = static_cast<cuuint64_t>(kCK) * (chunks1 + chunks2);
   const CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -677,22 +670,19 @@ int fused_up_conv(const void* x, const void* skip, const void* scale, const void
   p.bar_off = l.bar_off;
   p.n_units = n_units;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (S == 2) {
-    if (phases == 4) return launch_bn<2, 4, 1>(bn, tm_x, tm_s, tm_w, p, grid, smem, s);
-  }
-  return mblocks == 2 ? launch_bn<S, 1, 2>(bn, tm_x, tm_s, tm_w, p, grid, smem, s)
-                      : launch_bn<S, 1, 1>(bn, tm_x, tm_s, tm_w, p, grid, smem, s);
+  if (phases == 4) return launch_bn<4, 1>(bn, tm_x, tm_s, tm_w, p, grid, smem, s);
+  return mblocks == 2 ? launch_bn<1, 2>(bn, tm_x, tm_s, tm_w, p, grid, smem, s)
+                      : launch_bn<1, 1>(bn, tm_x, tm_s, tm_w, p, grid, smem, s);
 }
 
 }  // namespace
 
-// See fused_up_conv: stride 2 runs k4 s2 p1, stride 1 k3 s1 p1.
+// See fused_up_conv.
 extern "C" int dcvgan_fused_up_conv(const void* x, const void* skip, const void* scale, const void* shift,
                                     const void* w_gemm, void* out, int n, int h, int w_in, int c1, int c2, int cout,
-                                    int stride, int phases, int mblocks, int bn, int region_stages, int w_stages,
-                                    int resident, int region_rows, const void* tiles, int n_units, int grid, int smem,
+                                    int phases, int mblocks, int bn, int region_stages, int w_stages, int resident,
+                                    int region_rows, const void* tiles, int n_units, int grid, int smem,
                                     void* stream) {
-  auto entry = stride == 2 ? fused_up_conv<2> : fused_up_conv<1>;
-  return entry(x, skip, scale, shift, w_gemm, out, n, h, w_in, c1, c2, cout, stride, phases, mblocks, bn,
-               region_stages, w_stages, resident, region_rows, tiles, n_units, grid, smem, stream);
+  return fused_up_conv(x, skip, scale, shift, w_gemm, out, n, h, w_in, c1, c2, cout, phases, mblocks, bn,
+                       region_stages, w_stages, resident, region_rows, tiles, n_units, grid, smem, stream);
 }

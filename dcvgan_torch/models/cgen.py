@@ -32,7 +32,8 @@ In eval mode in bfloat16 on CUDA the up path runs on
 which applies block i-1's BatchNorm + ReLU to its raw conv output as it
 loads it and takes the skip as the rest of its input channels, so no
 BatchNorm, ReLU or concatenation runs as an op of its own; the outconv takes
-raw up5 and ``hs[0]`` the same way (k3 s1 p1), and tanh follows it. Up0's
+raw up5 and ``hs[0]`` the same way (k3 s1 p1: the op's tap-partials route,
+``ops/outconv.py``, inside the span ``cgen.outconv``), and tanh follows it. Up0's
 conv (on the 1x1 bottleneck with the latent, ngf*4 + dim_z channels) stays
 on cuDNN and writes raw. The fused up path runs inside the span
 ``cgen.up``. Float32, CPU, train-mode and GroupNorm forwards keep the
@@ -253,7 +254,8 @@ class ColorVideoGenerator(nn.Module):
             raw = fused_norm_act_up_conv(raw, scale, shift, w, hs[n - i])
         scale, shift = fold_batch_norm(self.up_blocks[-1].main[1])
         w = self.outconv.main[0].weight.to(dtype)
-        raw = fused_norm_act_up_conv(raw, scale, shift, w, hs[0], stride=1, padding=1)
+        with trace.span("cgen.outconv"):
+            raw = fused_norm_act_up_conv(raw, scale, shift, w, hs[0], stride=1, padding=1)
         return self.outconv.main[1](raw)
 
     def forward_videos(

@@ -8,8 +8,8 @@ with ``scale``/``shift`` the previous stage's eval-mode BatchNorm folded per
 channel in f32 (``models.layers.fold_batch_norm``), the activation rounded
 to bf16 before the product, ``skip`` (optional) read as it is, zero padding
 on the activation, f32 accumulation and the raw conv result in bf16,
-channels-last. Two geometries: k4 s2 p1 (the decoders' up stages) and k3 s1
-p1 (the colour generator's outconv).
+channels-last. Two geometries, two algorithms: k4 s2 p1 (the decoders' up
+stages) and k3 s1 p1 to at most 8 channels (the colour generator's outconv).
 
 It replaces no Pallas kernel: the JAX package leaves these convs and the
 BatchNorm, ReLU and concatenation around them to XLA. It was added because
@@ -18,15 +18,15 @@ sampling round's device time on the H100; the generators' eval-mode bf16
 decode (``models/ggen.py``, ``models/cgen.py``) runs each stage as one
 launch of this op.
 
-On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/fused_up.cu`` and counts the launch in
-``fused_norm_act_up_conv.launches`` (and by geometry in
-``fused_norm_act_up_conv.routes``: ``k4s2``, ``k3s1``); a shape the kernel
-cannot take raises. On a CPU tensor it runs
-:func:`reference_norm_act_up_conv`, the plain version. There is no fallback
-from the one to the other.
+On a CUDA tensor the wrapper launches a hand-written kernel by geometry and
+counts the launch in ``fused_norm_act_up_conv.launches`` (and by geometry in
+``fused_norm_act_up_conv.routes``: ``k4s2``, ``k3s1``): ``k4s2`` the implicit
+GEMM of ``csrc/fused_up.cu``, ``k3s1`` the tap-partials GEMM and stencil of
+``csrc/outconv.cu`` (``ops/outconv.py``); a shape a kernel cannot take
+raises. On a CPU tensor it runs :func:`reference_norm_act_up_conv`, the plain
+version. There is no fallback from the one to the other.
 
-The schedule is planned here, by shape (:func:`plan`): a unit's input
+The k4s2 schedule is planned here, by shape (:func:`plan`): a unit's input
 positions (128 or 256), output phases (one or all four) and output
 channels, whether its weights stay resident in shared memory or stream, the
 ring depths, the grid and the shared memory, and the table of units the
@@ -46,7 +46,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from dcvgan_torch.ops import build
+from dcvgan_torch.ops import build, outconv
 
 _CL = torch.channels_last
 
@@ -64,19 +64,18 @@ H100_SMS = 132
 # does not (ggen's 192 and 96 at ngf 96) fills its tiles, where 128-channel
 # tiles would leave a quarter of every product empty
 WIDE_ODD = 96
-# (kernel, stride, padding) -> route: output phases and taps a phase
+# (kernel, stride, padding) -> route
 GEOMETRIES = {(4, 2, 1): "k4s2", (3, 1, 1): "k3s1"}
-PHASES = {"k4s2": 4, "k3s1": 1}
+PHASES = 4  # output phases of a k4s2 output: its parities (py, px)
 # the columns of a tile-table row, as the kernel reads them
 TILE_COLUMNS = ("m0", "m1", "n0", "p_lo", "phase")
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one call runs: the kernel's schedule."""
+    """How one k4s2 call runs: the kernel's schedule."""
 
-    route: str  # "k4s2" or "k3s1"
-    phases: int  # output phases a unit computes: 1, or 4 (k4s2, resident weights)
+    phases: int  # output phases a unit computes: 1, or 4 (resident weights)
     mblocks: int  # m-blocks of 64 rows a consumer warpgroup takes: a unit is TILE_M * mblocks positions
     bn: int  # output channels per tile: 16, 32, 64, 128, or WIDE_ODD
     region_stages: int  # staged regions: one CHUNK of channels of a tile's rows each
@@ -108,9 +107,9 @@ def tile_table(n: int, h: int, w: int, bn: int, cout: int, groups: int, tile_m: 
     """The units of a launch, the kernel's whole walk: one int32 row per unit
     (``TILE_COLUMNS``: input positions [m0, m1), output channels [n0, n0 +
     bn), the first staged input row, the phase group: the output phase of a
-    one-phase k4s2 unit, else 0). ``groups``: 4 for one-phase k4s2 units,
-    else 1. Unit ``u`` is M tile ``u // (groups * nt)``, group ``u // nt %
-    groups``, Cout tile ``u % nt`` with ``nt = ceil(cout / bn)``: a tile's
+    one-phase unit, else 0). ``groups``: 4 for one-phase units, 1 for
+    four-phase ones. Unit ``u`` is M tile ``u // (groups * nt)``, group
+    ``u // nt % groups``, Cout tile ``u % nt`` with ``nt = ceil(cout / bn)``: a tile's
     units are neighbours, so the CTAs that run them at once read its rows
     from L2."""
     t = _m_tiles(n, h, w, tile_m)
@@ -132,7 +131,7 @@ def _smem_bytes(w: int, bn: int, region_stages: int, w_stages: int, rows: int) -
             + 8 * (3 * region_stages + 2 * w_stages))
 
 
-def _schedule(n, h, w, c1, c2, cout, route, unit_phases, mblocks, bn, may_stream, sms) -> Optional[Plan]:
+def _schedule(n, h, w, c1, c2, cout, unit_phases, mblocks, bn, may_stream, sms) -> Optional[Plan]:
     """The plan of one unit shape (phases, m-blocks, at most ``bn`` output
     channels a tile), its weights resident where they fit, else streamed
     where ``may_stream``; else None."""
@@ -141,7 +140,7 @@ def _schedule(n, h, w, c1, c2, cout, route, unit_phases, mblocks, bn, may_stream
     if rows > 256:
         raise ValueError(f"a tile reads {rows} input rows, over the TMA box limit of 256")
     m_tiles, chunks = len(t), -(-c1 // CHUNK) + -(-c2 // CHUNK)
-    groups = PHASES[route] // unit_phases
+    groups = PHASES // unit_phases
     # a small site splits Cout until the grid covers at least half the card
     while m_tiles * groups * -(-cout // bn) < sms // 2 and bn >= 32:
         bn = 32 if bn == WIDE_ODD else bn // 2
@@ -153,7 +152,7 @@ def _schedule(n, h, w, c1, c2, cout, route, unit_phases, mblocks, bn, may_stream
     # resident weights: a unit's chunks x (phase, tap) stages, when they fit
     # beside two regions and the grid can keep every CTA on one phase group
     # and Cout tile
-    resident_stages = chunks * (9 if route == "k3s1" else 4 * unit_phases)
+    resident_stages = chunks * 4 * unit_phases
     if (resident_stages * stage <= RESIDENT_BYTES and units >= group and sms >= group
             and fixed + resident_stages * per_stage + MIN_REGION_STAGES * per_region <= SMEM_LIMIT):
         w_stages, grid = resident_stages, min(units, sms) // group * group
@@ -166,16 +165,15 @@ def _schedule(n, h, w, c1, c2, cout, route, unit_phases, mblocks, bn, may_stream
         w_stages = min(MAX_W_STAGES, (SMEM_LIMIT - fixed - region_stages * per_region) // per_stage)
         if w_stages < MIN_W_STAGES:
             raise ValueError(f"the staged rows of W {w} leave no room for the weight ring")
-    return Plan(route, unit_phases, mblocks, bn, region_stages, w_stages, resident, rows, grid,
+    return Plan(unit_phases, mblocks, bn, region_stages, w_stages, resident, rows, grid,
                 _smem_bytes(w, bn, region_stages, w_stages, rows), m_tiles, units)
 
 
 @functools.lru_cache(maxsize=256)
 def plan(
-    n: int, h: int, w: int, c1: int, c2: int, cout: int, route: str = "k4s2",
-    aligned: bool = True, sms: int = H100_SMS,
+    n: int, h: int, w: int, c1: int, c2: int, cout: int, aligned: bool = True, sms: int = H100_SMS,
 ) -> Plan:
-    """The schedule of one call, from its shape alone; raises ``ValueError``
+    """The schedule of one k4s2 call, from its shape alone; raises ``ValueError``
     for a shape the kernel cannot take: channel counts not a multiple of 8,
     W or the rows a tile reads over 256 (TMA box limits), pointers not
     16-byte aligned (``aligned``), or rings that do not fit in shared
@@ -183,14 +181,14 @@ def plan(
 
     The unit's shape is the first of these whose weights stay resident
     (else the last, streamed), as measured at the flagship sites on the
-    H100 (PERF.md): all four k4s2 phases at up to 32 channels (one staged
+    H100 (PERF.md): all four phases at up to 32 channels (one staged
     region and 9 A gathers for 16 products); two m-blocks of 64 rows a
     warpgroup where one tile of up to 64 channels covers Cout (half the
     weight bytes and staged halo rows a position); one m-block at up to
     128 channels, or at 96 where 96 divides Cout and 128 does not (ngf 96's
     192 and 96: 1.84 -> 1.68 and 2.15 -> 1.50 ms at N = 4096, PERF.md).
 
-    Before them, a k4s2 unit that takes a skip at a Cout that 96 divides
+    Before them, a unit that takes a skip at a Cout that 96 divides
     (the colour generator's up1-5 at cgen ngf 96) is two m-blocks of 96
     channels, resident or streamed: half the weight bytes a position of
     one m-block's, and the kernel runs only the k steps that hold channels
@@ -198,8 +196,6 @@ def plan(
     = 4096, up1-5 0.32 / 1.31 / 3.18 / 3.36 / 8.73 -> 0.32 / 1.29 / 2.53 /
     2.96 / 6.96 ms (PERF.md); the geometry generator's stages, which take
     no skip, keep their plans."""
-    if route not in PHASES:
-        raise ValueError(f"unknown route {route!r}")
     if not aligned:
         raise ValueError("fused_norm_act_up_conv takes 16-byte aligned tensors only")
     if c1 <= 0 or c1 % 8 or c2 < 0 or c2 % 8:
@@ -218,12 +214,11 @@ def plan(
     shapes = [(1, 1, widest, True)]
     if widest <= 64:
         shapes.insert(0, (1, 2, widest, False))
-    if route == "k4s2":
-        shapes.insert(0, (4, 1, min(widest, 32), False))
-    if route == "k4s2" and c2 > 0 and cout % WIDE_ODD == 0:
+    shapes.insert(0, (4, 1, min(widest, 32), False))
+    if c2 > 0 and cout % WIDE_ODD == 0:
         shapes.insert(0, (1, 2, WIDE_ODD, True))
     for unit_phases, mblocks, bn, may_stream in shapes:
-        p = _schedule(n, h, w, c1, c2, cout, route, unit_phases, mblocks, bn, may_stream, sms)
+        p = _schedule(n, h, w, c1, c2, cout, unit_phases, mblocks, bn, may_stream, sms)
         if p is not None:
             return p
     raise AssertionError("the last unit shape streams its weights: it always has a plan")
@@ -307,16 +302,17 @@ def pack_weight(w: torch.Tensor, c1: int) -> torch.Tensor:
     return g
 
 
-def gemm_weight(w: torch.Tensor, c1: int) -> torch.Tensor:
-    """:func:`pack_weight`, kept on ``w`` while its storage and version stay
-    the same (a serving copy packs once); an inference tensor, which has no
-    version counter, is packed at every call."""
+def gemm_weight(w: torch.Tensor, c1: int, pack=pack_weight) -> torch.Tensor:
+    """``pack(w, c1)`` (:func:`pack_weight`, or the k3s1 route's
+    ``outconv.pack_weight``), kept on ``w`` while its storage and version
+    stay the same (a serving copy packs once); an inference tensor, which
+    has no version counter, is packed at every call."""
     if w.is_inference():
-        return pack_weight(w, c1)
-    key = (w.data_ptr(), w._version, c1)
+        return pack(w, c1)
+    key = (w.data_ptr(), w._version, c1, pack)
     kept = getattr(w, "_fused_up_gemm", None)
     if kept is None or kept[0] != key:
-        kept = (key, pack_weight(w.detach(), c1))
+        kept = (key, pack(w.detach(), c1))
         w._fused_up_gemm = kept
     return kept[1]
 
@@ -324,7 +320,7 @@ def gemm_weight(w: torch.Tensor, c1: int) -> torch.Tensor:
 @functools.cache
 def _kernel():
     fn = build.library("fused_up").dcvgan_fused_up_conv
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
         ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
@@ -345,15 +341,13 @@ _ERRORS = {
 }
 
 
-def plan_for(
-    x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, skip: Optional[torch.Tensor], route: str
-) -> Plan:
+def plan_for(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, skip: Optional[torch.Tensor]) -> Plan:
     """:func:`plan` for these CUDA tensors (their shapes, alignment and card)."""
     n, c1, h, wd = x.shape
     ptrs = [x, w, out] + ([skip] if skip is not None else [])
     aligned = all(t.data_ptr() % 16 == 0 for t in ptrs)
     c2 = 0 if skip is None else skip.shape[1]
-    return plan(n, h, wd, c1, c2, out.shape[1], route, aligned, _sms(x.device.index or 0))
+    return plan(n, h, wd, c1, c2, out.shape[1], aligned, _sms(x.device.index or 0))
 
 
 def launch(
@@ -365,26 +359,26 @@ def launch(
     out: torch.Tensor,
     skip: Optional[torch.Tensor] = None,
 ) -> None:
-    """Launch the kernel on the current stream; raises if the launch fails.
-    ``w_gemm`` is :func:`pack_weight`'s matrix, ``out`` (N, Cout, S*H, S*W)
-    channels-last."""
+    """Launch the k4s2 kernel on the current stream; raises if the launch
+    fails. ``w_gemm`` is :func:`pack_weight`'s matrix, ``out`` (N, Cout, 2H,
+    2W) channels-last."""
     n, c1, h, wd = x.shape
     c2 = 0 if skip is None else skip.shape[1]
     cout = out.shape[1]
     fn = _kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        tiles = _tiles_on(x.device, n, h, wd, p.bn, cout, PHASES[p.route] // p.phases, TILE_M * p.mblocks)
+        tiles = _tiles_on(x.device, n, h, wd, p.bn, cout, PHASES // p.phases, TILE_M * p.mblocks)
         err = fn(
             x.data_ptr(), skip.data_ptr() if skip is not None else None, scale.data_ptr(), shift.data_ptr(),
-            w_gemm.data_ptr(), out.data_ptr(), n, h, wd, c1, c2, cout, 2 if p.route == "k4s2" else 1, p.phases,
+            w_gemm.data_ptr(), out.data_ptr(), n, h, wd, c1, c2, cout, p.phases,
             p.mblocks, p.bn, p.region_stages, p.w_stages, int(p.resident), p.region_rows, tiles.data_ptr(), p.units,
             p.grid, p.smem, stream,
         )
     if err in _ERRORS:
-        raise ValueError(f"fused_norm_act_up_conv ({p.route}, width {wd}): {_ERRORS[err]}")
+        raise ValueError(f"fused_norm_act_up_conv (k4s2, width {wd}): {_ERRORS[err]}")
     if err != 0:
-        raise RuntimeError(f"fused_norm_act_up_conv {p.route} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"fused_norm_act_up_conv k4s2 kernel launch failed: CUDA error {err}")
 
 
 def fused_norm_act_up_conv(
@@ -412,11 +406,14 @@ def fused_norm_act_up_conv(
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     n, c1, h, wd = x.shape
-    s = 2 if route == "k4s2" else 1
-    out = torch.empty((n, w.shape[1], s * h, s * wd), dtype=x.dtype, device=x.device, memory_format=_CL)
-    w_gemm = gemm_weight(w, c1)
-    p = plan_for(x, w_gemm, out, skip, route)
-    launch(p, x, scale, shift, w_gemm, out, skip)
+    if route == "k3s1":
+        out = torch.empty((n, w.shape[1], h, wd), dtype=x.dtype, device=x.device, memory_format=_CL)
+        w27 = gemm_weight(w, c1, outconv.pack_weight)
+        outconv.launch(outconv.plan_for(x, w27, out, skip), x, scale, shift, w27, out, skip)
+    else:
+        out = torch.empty((n, w.shape[1], 2 * h, 2 * wd), dtype=x.dtype, device=x.device, memory_format=_CL)
+        w_gemm = gemm_weight(w, c1)
+        launch(plan_for(x, w_gemm, out, skip), x, scale, shift, w_gemm, out, skip)
     fused_norm_act_up_conv.launches += 1
     fused_norm_act_up_conv.routes[route] += 1
     return out

@@ -2,13 +2,15 @@
 ReLU, the U-Net skip and a transposed conv in one op.
 
 On the CPU ``fused_norm_act_up_conv`` runs its plain version. These cases
-hold it, and an emulation of the kernel's GEMM (the packed weight and the
-per-phase taps the CUDA source uses), against ``F.conv_transpose2d`` on the
-materialised ``cat([relu(x * scale + shift), skip])``; check the planner's
-tile tables as pure Python; and hold the generators' eval-mode decode on the
-fused op against their unfused modules. The CUDA kernel itself is held
-against the plain version on the card (``gpu`` marker, and
-``chip_smoke.py``).
+hold it, and emulations of the kernels' arithmetic, against
+``F.conv_transpose2d`` on the materialised ``cat([relu(x * scale + shift),
+skip])``: for k4s2 the packed weight and the per-phase taps of
+``csrc/fused_up.cu``, for k3s1 the tap-partials GEMM and 3 x 3 stencil of
+``csrc/outconv.cu`` (``ops/outconv.py``); check both planners as pure
+Python (the k4s2 tile tables, the outconv's row walk); and hold the
+generators' eval-mode decode on the fused op against their unfused modules.
+The CUDA kernels themselves are held against the plain version on the card
+(``gpu`` marker, and ``chip_smoke.py``).
 """
 
 import re
@@ -27,6 +29,7 @@ from dcvgan_torch.models.ggen import GeometricVideoGenerator
 from dcvgan_torch.models import layers
 from dcvgan_torch.models.layers import cast_for_compute
 from dcvgan_torch.ops import fused_up as up
+from dcvgan_torch.ops import outconv as oc
 
 # The serving path's ten sites at mug-depth width (ngf 64): (H of x, C_x,
 # C_skip, Cout, route). ggen's four k4 s2 stages, cgen's up1-up5 and outconv.
@@ -108,9 +111,40 @@ def _materialised(x, scale, shift, w, skip, route):
     return F.conv_transpose2d(xn.double(), w.double(), stride=stride, padding=padding)
 
 
+def _tap_partials(x, scale, shift, w, skip, acc=torch.float32):
+    """The outconv kernel's algorithm (``csrc/outconv.cu``): each input
+    pixel's K channels ``A = cat(relu(x * scale + shift) rounded to x's
+    dtype, skip)`` times the packed W27 (all nine taps x Cout at once) into
+    partials ``T`` in ``acc``; then each output pixel sums the partials of
+    its 3 x 3 neighbourhood, tap t reading neighbour (t // 3 - 1, t % 3 - 1)
+    in tap order from 0 (a neighbour outside the image adds nothing). In
+    float32 the sum is rounded once to bfloat16, as the kernel's is; in
+    float64 it is returned as it is."""
+    n, c1, h, wd = x.shape
+    cout = w.shape[1]
+    xn = torch.relu(x.float() * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)).to(x.dtype)
+    g = oc.pack_weight(w, c1)  # (chunks, BN, 64)
+    chunks1 = -(-c1 // oc.CHUNK)
+    a = torch.zeros(n, h, wd, g.shape[0] * oc.CHUNK, dtype=acc)  # pixels x the packed K
+    a[..., :c1] = xn.permute(0, 2, 3, 1).to(acc)
+    if skip is not None:
+        a[..., chunks1 * oc.CHUNK:chunks1 * oc.CHUNK + skip.shape[1]] = skip.permute(0, 2, 3, 1).to(acc)
+    w27 = g.transpose(1, 2).reshape(-1, g.shape[1]).to(acc)  # (K, BN)
+    t = F.pad(a @ w27, (0, 0, 1, 1, 1, 1))  # (n, h + 2, w + 2, BN): zero partials around the image
+    out = torch.zeros(n, h, wd, cout, dtype=acc)
+    for tap in range(9):
+        dy, dx = tap // 3 - 1, tap % 3 - 1
+        out = out + t[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + wd, tap * cout:(tap + 1) * cout]
+    out = out.permute(0, 3, 1, 2)
+    return out.to(torch.bfloat16) if acc == torch.float32 else out
+
+
 def _emulated(x, scale, shift, w, skip, route):
-    """The kernel's arithmetic in float64: the activation, then per output
-    phase and tap a GEMM of the shifted input with the packed weight's rows."""
+    """The kernel's arithmetic in float64: for k4s2 the activation, then per
+    output phase and tap a GEMM of the shifted input with the packed
+    weight's rows; for k3s1 the tap partials and their stencil."""
+    if route == "k3s1":
+        return _tap_partials(x, scale, shift, w, skip, torch.float64)
     n, c1, h, wd = x.shape
     xn = torch.relu(x.float() * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)).to(x.dtype)
     g = up.pack_weight(w, c1).double()  # (Cout, taps, K)
@@ -147,6 +181,60 @@ def test_emulated_kernel_matches_the_materialised_conv_at_edge_shapes(site):
     x, scale, shift, wt, skip = _case(n, h, w, c1, c2, cout, route, seed=c1 + cout)
     torch.testing.assert_close(_emulated(x, scale, shift, wt, skip, route),
                                _materialised(x, scale, shift, wt, skip, route), rtol=1e-9, atol=1e-9)
+
+
+# the outconv's shapes in bf16, as the card runs them: (N, H, W, C_x,
+# C_skip, Cout). Both serving sites (64 + 64 and 96 + 96 -> 3), W != H, a
+# column image, Cout 1 / 2 / 8 (tap columns 16, 32, 96), channel runs that
+# end inside a chunk and inside a k step, no skip, a row wider than the
+# kernel's 64-column tile
+OUTCONV_CASES = [
+    (2, 64, 64, 64, 64, 3), (1, 64, 64, 96, 96, 3), (3, 5, 7, 8, 16, 3), (5, 6, 1, 8, 8, 2),
+    (2, 6, 5, 16, 8, 1), (2, 4, 9, 24, 40, 8), (1, 7, 70, 24, 0, 3), (2, 3, 3, 96, 8, 2),
+]
+
+
+@pytest.mark.parametrize("n,h,w,c1,c2,cout", OUTCONV_CASES)
+def test_tap_partials_in_f32_rounded_once_match_the_materialised_conv(n, h, w, c1, c2, cout):
+    """The outconv's arithmetic: f32 partials, the stencil's f32 sum in tap
+    order, one rounding to bf16. Against the exact (float64) transposed conv
+    of the same bf16 activation: within that one rounding (half an ulp,
+    held at one: 2^-7 relative) and the f32 sums' own error (K up to 192
+    products, then nine partials: held at 1e-5)."""
+    x, scale, shift, w_, skip = _case(n, h, w, c1, c2, cout, "k3s1", seed=c1 + c2 + cout, dtype=torch.bfloat16)
+    got = _tap_partials(x, scale, shift, w_, skip)
+    want = _materialised(x, scale, shift, w_, skip, "k3s1")
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (n, cout, h, w)
+    torch.testing.assert_close(got.double(), want, rtol=2.0**-7, atol=1e-5)
+
+
+def test_tap_partials_keep_a_nan_in_x_in_its_neighbourhood():
+    """A NaN in one channel of x poisons every partial of its pixel, so the
+    3 x 3 neighbourhood of outputs around it is NaN, as in the plain conv,
+    and nothing else is."""
+    x, scale, shift, w_, skip = _case(2, 8, 8, 64, 64, 3, "k3s1", seed=4, dtype=torch.bfloat16)
+    x[1, 5, 0, 3] = float("nan")
+    got = _tap_partials(x, scale, shift, w_, skip).double()
+    want = up.reference_norm_act_up_conv(x, scale, shift, w_, skip, 1, 1).double()
+    nan = torch.zeros_like(got, dtype=torch.bool)
+    nan[1, :, 0:2, 2:5] = True
+    assert torch.equal(got.isnan(), nan) and torch.equal(want.isnan(), nan)
+    torch.testing.assert_close(got[~nan], want[~nan], rtol=2.0**-7, atol=1e-3)
+
+
+def test_outconv_pack_weight_is_w27_by_chunk():
+    """W27's chunk cc, column t * Cout + c, channel j is w[k, c, 2 - t // 3,
+    2 - t % 3] at packed input channel 64 cc + j: x's channels from chunk 0,
+    the skip's from the next whole chunk, zeros elsewhere."""
+    w = torch.randn(96 + 8, 3, 3, 3)
+    g = oc.pack_weight(w, 96)
+    assert g.shape == (3, 32, 64)
+    for k, packed in ((0, 0), (95, 95), (96, 128), (103, 135)):
+        cc, j = divmod(packed, 64)
+        for t in range(9):
+            for c in range(3):
+                assert g[cc, t * 3 + c, j] == w[k, c, 2 - t // 3, 2 - t % 3]
+    assert not g[1, :, 32:].any() and not g[2, :, 8:].any() and not g[:, 27:].any()
 
 
 @pytest.mark.parametrize("site", SERVING_SITES, ids=[f"{s[4]}-h{s[0]}-{s[1]}+{s[2]}-{s[3]}" for s in SERVING_SITES])
@@ -210,12 +298,12 @@ SCHEDULE_CASES = [(3, h, h, c1, c2, co, r)
 ]
 
 
-def _reads(n, h, w, route):
+def _reads(n, h, w):
     """Per input position: the lowest and highest flattened input row its
-    valid taps read, over every phase."""
+    valid k4s2 taps read, over every phase."""
     img, a, b = (t.ravel() for t in np.meshgrid(np.arange(n), np.arange(h), np.arange(w), indexing="ij"))
     lo, hi = img * h + a, img * h + a
-    for taps in _taps(route):
+    for taps in _taps("k4s2"):
         for dy, dx, _ in taps:
             ok = (a + dy >= 0) & (a + dy < h) & (b + dx >= 0) & (b + dx < w)
             row = img * h + a + dy
@@ -224,10 +312,50 @@ def _reads(n, h, w, route):
     return lo, hi
 
 
+def _stencil_walk(h, g0, g1, lo, hi):
+    """The outconv's stencil loop as ``csrc/outconv.cu`` runs it, over one
+    CTA's walk: per step i (walk row lo + i, its partials now written) the
+    output rows it emits, each with the partial rows it reads, and the walk
+    row whose partials it then frees (i - 2)."""
+    steps = []
+    for i in range(hi - lo + 1):
+        v, emits = lo + i, []
+        for o, ok in ((v - 1, v % h != 0 and v - 1 >= g0), (v, v % h == h - 1 and g0 <= v < g1)):
+            if ok:
+                emits.append((o, [r for r in (o - 1, o, o + 1) if r // h == o // h]))
+        steps.append((v, emits, v - 2 if i >= 2 else None))
+    return steps
+
+
+def _check_outconv_walk(n, h, w, c1, c2, cout, sms=up.H100_SMS):
+    """Every output row written once, by a CTA that computed (and had not
+    yet freed) each partial row it reads; shares within one row."""
+    p = oc.plan(n, h, w, c1, c2, cout, sms=sms)
+    assert p.strips == (1 if w <= oc.TILE_W else -(-w // oc.STRIP)) and p.rows == n * p.strips * h
+    walks = oc.cta_rows(p.rows, h, p.grid)
+    assert len(walks) == p.grid == min(p.rows, sms)
+    written = np.zeros(p.rows, np.int32)
+    for g0, g1, lo, hi in walks:
+        assert g0 - 1 <= lo <= g0 < g1 <= hi + 1 <= g1 + 1 and lo // h == g0 // h and hi // h == (g1 - 1) // h
+        freed = set()
+        for v, emits, free in _stencil_walk(h, g0, g1, lo, hi):
+            for o, reads in emits:
+                written[o] += 1
+                assert all(lo <= r <= v and r not in freed for r in reads), (o, reads, v)
+            freed.add(free)
+    np.testing.assert_array_equal(written, 1)
+    sizes = [g1 - g0 for g0, g1, _, _ in walks]
+    assert max(sizes) - min(sizes) <= 1
+    return p
+
+
 @pytest.mark.parametrize("n,h,w,c1,c2,cout,route", SCHEDULE_CASES)
 def test_tile_table_covers_every_output_once_and_stages_every_row_read(n, h, w, c1, c2, cout, route):
-    p = up.plan(n, h, w, c1, c2, cout, route)
-    phases, groups = up.PHASES[route], up.PHASES[route] // p.phases
+    if route == "k3s1":  # the outconv's kernel walks rows, not a tile table
+        _check_outconv_walk(n, h, w, c1, c2, cout)
+        return
+    p = up.plan(n, h, w, c1, c2, cout)
+    phases, groups = up.PHASES, up.PHASES // p.phases
     tile_m = up.TILE_M * p.mblocks
     t = up.tile_table(n, h, w, p.bn, cout, groups, tile_m).numpy().astype(np.int64)
     assert t.shape == (p.units, len(up.TILE_COLUMNS)) and p.units == p.m_tiles * groups * -(-cout // p.bn)
@@ -235,7 +363,7 @@ def test_tile_table_covers_every_output_once_and_stages_every_row_read(n, h, w, 
     m = n * h * w
     nt = -(-cout // p.bn)
     covered = np.zeros((m, phases, nt * p.bn), np.int32)
-    lo, hi = _reads(n, h, w, route)
+    lo, hi = _reads(n, h, w)
     for m0, m1, n0, p_lo, group in zip(*(cols[c] for c in up.TILE_COLUMNS)):
         assert 0 <= m0 < m1 <= min(m0 + tile_m, m) and n0 % p.bn == 0 and 0 <= group < groups
         # a one-phase unit computes its group's phase, a four-phase unit all four
@@ -277,7 +405,12 @@ def test_plan_takes_every_site_of_every_width_in_shared_memory(ngf, geometric_in
     assert len(sites) == 10
     for n in (16, 320, 4096):
         for h, c1, c2, cout, route in sites:
-            p = up.plan(n, h, h, c1, c2, cout, route)
+            if route == "k3s1":  # the outconv's own planner
+                p = oc.plan(n, h, h, c1, c2, cout)
+                assert p.smem <= oc.SMEM_LIMIT and oc.MIN_STAGES <= p.stages <= oc.MAX_STAGES
+                assert p.slots in (oc.SLOTS, oc.MIN_SLOTS) and p.bn == 32
+                continue
+            p = up.plan(n, h, h, c1, c2, cout)
             assert p.smem <= up.SMEM_LIMIT and up.MIN_REGION_STAGES <= p.region_stages <= up.MAX_REGION_STAGES
             assert p.resident or up.MIN_W_STAGES <= p.w_stages <= up.MAX_W_STAGES
             assert p.region_rows <= 256 and p.bn in (16, 32, 64, 96, 128)
@@ -286,32 +419,44 @@ def test_plan_takes_every_site_of_every_width_in_shared_memory(ngf, geometric_in
 @pytest.mark.parametrize("n,h,w,c1,c2,cout,route", SCHEDULE_CASES + [
     (4096, h, h, c1, c2, co, r) for h, c1, c2, co, r in SERVING_SITES + SEGM_SITES + WIDE_CGEN_SITES])
 def test_resident_plans_keep_each_cta_on_one_phase_and_cout_tile(n, h, w, c1, c2, cout, route):
-    p = up.plan(n, h, w, c1, c2, cout, route)
+    if route == "k3s1":
+        # the outconv's W27 always stays resident (loaded once a CTA) and
+        # each CTA walks one contiguous run of rows, one CTA an SM at most
+        p = _check_outconv_walk(n, h, w, c1, c2, cout)
+        assert p.grid == min(p.rows, up.H100_SMS)
+        return
+    p = up.plan(n, h, w, c1, c2, cout)
     if not p.resident:
         assert p.region_stages == up.MIN_REGION_STAGES and p.w_stages >= up.MIN_W_STAGES
         return
     chunks = -(-c1 // up.CHUNK) + -(-c2 // up.CHUNK)
     # a unit's whole weights: one stage a chunk and (phase, tap)
     assert p.w_stages == chunks * p.phases * len(_taps(route)[0])
-    t = up.tile_table(n, h, w, p.bn, cout, up.PHASES[route] // p.phases, up.TILE_M * p.mblocks).numpy()
+    t = up.tile_table(n, h, w, p.bn, cout, up.PHASES // p.phases, up.TILE_M * p.mblocks).numpy()
     for b in range(p.grid):  # CTA b walks units b, b + grid, ...: one phase and Cout tile
         assert len({(int(r[2]), int(r[4])) for r in t[b::p.grid]}) == 1
 
 
 def test_flagship_plans_keep_the_small_k_sites_weights_resident():
-    plans = {(h, c1 + c2): up.plan(4096, h, h, c1, c2, co, r) for h, c1, c2, co, r in SERVING_SITES}
+    plans = {(h, c1 + c2): up.plan(4096, h, h, c1, c2, co) for h, c1, c2, co, r in SERVING_SITES if r == "k4s2"}
     # K = 512 at 128 output channels a tile: 512 KB a phase, streamed
     assert not any(p.resident for (h, k), p in plans.items() if k == 512)
     assert all(p.resident for (h, k), p in plans.items() if k <= 256 and h >= 16)
     # all four phases a unit where four phases' weights fit: ggen's 16 and 32 px stages, cgen's up5
     assert [k for k, p in plans.items() if p.phases == 4] == [(16, 128), (32, 64), (32, 128)]
-    # two m-blocks where one tile of at most 64 channels covers Cout: cgen's up4 and outconv
-    assert [k for k, p in plans.items() if p.mblocks == 2] == [(16, 256), (64, 128)]
+    # two m-blocks where one tile of at most 64 channels covers Cout: cgen's up4
+    assert [k for k, p in plans.items() if p.mblocks == 2] == [(16, 256)]
     assert all(p.phases * p.mblocks * p.bn <= 128 for p in plans.values())
+    # the outconv (k3s1, ops/outconv.py) keeps its weights (W27, 8 KB at K =
+    # 128) resident for every CTA's whole walk, beside eight row stages
+    assert oc.plan(4096, 64, 64, 64, 64, 3).stages == oc.MAX_STAGES
 
 
-# mug-depth's ten plans at N = 4096, field for field after the route: a
-# change for another configuration's shapes leaves these as they are
+# mug-depth's ten plans at N = 4096, field for field: a change for another
+# configuration's shapes leaves these as they are. The k4s2 sites' (phases,
+# m-blocks, bn, region stages, weight stages, resident, region rows, grid,
+# smem, M tiles, units); the outconv's (bn, stages, slots, strips, rows,
+# grid, smem)
 FLAGSHIP_PLANS = [
     (1, 1, 128, 2, 12, False, 32, 132, 230768, 512, 4096),
     (1, 1, 128, 2, 12, False, 16, 132, 230768, 2048, 8192),
@@ -322,7 +467,7 @@ FLAGSHIP_PLANS = [
     (1, 1, 128, 2, 12, False, 16, 132, 230768, 2048, 8192),
     (1, 2, 64, 3, 16, True, 16, 132, 230856, 4096, 16384),
     (4, 1, 32, 4, 32, True, 6, 132, 231136, 32768, 65536),
-    (1, 2, 16, 3, 18, True, 6, 132, 185832, 65536, 65536),
+    (32, 8, 6, 1, 262144, 132, 204384),
 ]
 
 
@@ -330,14 +475,17 @@ FLAGSHIP_PLANS = [
                          ids=[f"{s[4]}-h{s[0]}-{s[1]}+{s[2]}-{s[3]}" for s in SERVING_SITES])
 def test_flagship_plans_are_pinned(site, want):
     h, c1, c2, cout, route = site
-    p = up.plan(4096, h, h, c1, c2, cout, route)
-    assert p.route == route
+    if route == "k3s1":
+        p = oc.plan(4096, h, h, c1, c2, cout)
+        assert (p.bn, p.stages, p.slots, p.strips, p.rows, p.grid, p.smem) == want
+        return
+    p = up.plan(4096, h, h, c1, c2, cout)
     assert (p.phases, p.mblocks, p.bn, p.region_stages, p.w_stages, p.resident, p.region_rows, p.grid, p.smem,
             p.m_tiles, p.units) == want
 
 
-# surreal-segm's four ggen plans at N = 4096, field for field after the
-# route (its cgen, at ngf 64, is mug-depth's)
+# surreal-segm's four ggen plans at N = 4096, field for field (its cgen, at
+# ngf 64, is mug-depth's)
 SEGM_PLANS = [
     (1, 1, 128, 2, 12, False, 32, 132, 230768, 512, 6144),
     (1, 1, 96, 2, 12, False, 16, 132, 181616, 2048, 16384),
@@ -350,14 +498,14 @@ SEGM_PLANS = [
                          ids=[f"{s[4]}-h{s[0]}-{s[1]}+{s[2]}-{s[3]}" for s in SEGM_SITES])
 def test_surreal_segm_plans_are_pinned(site, want):
     h, c1, c2, cout, route = site
-    p = up.plan(4096, h, h, c1, c2, cout, route)
-    assert p.route == route
+    p = up.plan(4096, h, h, c1, c2, cout)
+    assert route == "k4s2"
     assert (p.phases, p.mblocks, p.bn, p.region_stages, p.w_stages, p.resident, p.region_rows, p.grid, p.smem,
             p.m_tiles, p.units) == want
 
 
 def test_ngf96_plans_take_whole_96_channel_tiles():
-    plans = [up.plan(4096, h, h, c1, c2, co, r) for h, c1, c2, co, r in SEGM_SITES]
+    plans = [up.plan(4096, h, h, c1, c2, co) for h, c1, c2, co, r in SEGM_SITES]
     # K 768 at Cout 384: three whole 128-channel tiles, streamed, as at K = 512
     assert (plans[0].phases, plans[0].bn, plans[0].resident) == (1, 128, False)
     # Cout 192 and 96: 96-channel tiles, K 192's weights resident
@@ -369,12 +517,14 @@ def test_ngf96_plans_take_whole_96_channel_tiles():
 
 
 def test_wide_cgen_plans_take_two_96_channel_m_blocks():
-    plans = [up.plan(4096, h, h, c1, c2, co, r) for h, c1, c2, co, r in WIDE_CGEN_SITES]
+    plans = [up.plan(4096, h, h, c1, c2, co) if r == "k4s2" else oc.plan(4096, h, h, c1, c2, co)
+             for h, c1, c2, co, r in WIDE_CGEN_SITES]
     # up1-5: a skip at a Cout that 96 divides: two m-blocks of 96 channels, the weights streamed
     assert [(p.phases, p.mblocks, p.bn, p.resident) for p in plans[:5]] == [(1, 2, 96, False)] * 5
     assert all(p.region_stages == up.MIN_REGION_STAGES and p.smem <= up.SMEM_LIMIT for p in plans[:5])
-    # the outconv (Cout 3) keeps the k3 unit of mug-depth's outconv
-    assert (plans[5].phases, plans[5].mblocks, plans[5].bn, plans[5].resident) == (1, 2, 16, True)
+    # the outconv (96 + 96 -> 3) on its own kernel: 27 tap columns in 32,
+    # four row stages of four chunks (two half live) beside six partial rows
+    assert (plans[5].bn, plans[5].stages, plans[5].slots, plans[5].grid) == (32, 4, 6, 132)
     # where two m-blocks of 96 channels' weights fit, they stay resident; small grids split Cout
     assert up.plan(200, 9, 9, 48, 48, 96).resident
     assert up.plan(40, 6, 10, 96, 192, 96).bn == 32
@@ -382,9 +532,40 @@ def test_wide_cgen_plans_take_two_96_channel_m_blocks():
     assert up.plan(4096, 8, 8, 384, 0, 192).mblocks == 1
 
 
+# the outconv's walk where CTA ranges cut frames: (N, H, W, C_x, C_skip,
+# Cout, SMs): a range that starts and ends inside a frame, a last range cut
+# short at the end of N, frames of one row, rows cut into column strips,
+# more CTAs than a frame has rows
+OUTCONV_WALKS = [
+    (3, 5, 7, 8, 16, 2, 4), (1, 64, 64, 64, 64, 3, 7), (4, 1, 64, 64, 64, 3, 3), (2, 3, 130, 8, 8, 3, 5),
+    (5, 6, 1, 8, 8, 2, 132), (7, 64, 64, 96, 96, 3, 132), (1, 2, 200, 8, 0, 1, 11),
+]
+
+
+@pytest.mark.parametrize("n,h,w,c1,c2,cout,sms", OUTCONV_WALKS)
+def test_outconv_walk_writes_every_row_once_where_ranges_cut_frames(n, h, w, c1, c2, cout, sms):
+    p = _check_outconv_walk(n, h, w, c1, c2, cout, sms)
+    assert p.grid == min(sms, p.rows)
+
+
+def test_outconv_plan_refuses_what_its_kernel_does_not_take():
+    assert oc.plan(4096, 64, 64, 64, 64, 8).bn == 96  # 72 tap columns: the widest it takes
+    with pytest.raises(ValueError, match="at most 8 output channels"):
+        oc.plan(4096, 64, 64, 64, 64, 9)
+    with pytest.raises(ValueError, match="TMA box"):
+        oc.plan(2, 4, 257, 8, 8, 3)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        oc.plan(2, 4, 4, 12, 8, 3)
+    with pytest.raises(ValueError, match="aligned"):
+        oc.plan(2, 4, 4, 8, 8, 3, aligned=False)
+    with pytest.raises(ValueError, match="do not fit"):
+        oc.plan(2, 4, 64, 640, 640, 3)
+
+
 def test_plan_splits_cout_for_small_grids_and_pads_small_cout_to_16():
     assert up.plan(4096, 4, 4, 512, 0, 256).bn == 128
-    assert up.plan(4096, 64, 64, 64, 64, 3, "k3s1").bn == 16
+    # the outconv's 9 x 3 tap columns pad to 32, one wgmma m64n32 a k step
+    assert oc.plan(4096, 64, 64, 64, 64, 3).bn == 32
     assert up.plan(4096, 32, 32, 64, 0, 1).bn == 16
     small = up.plan(2, 2, 2, 256, 256, 256)  # 1 M tile x 4 phases: split to cover half the card
     assert small.bn == 16 and small.units == 4 * 16 and small.phases == 1
@@ -465,6 +646,24 @@ def test_cgen_eval_forward_on_the_fused_op_matches_the_modules(fused_on_cpu, geo
     assert len(fused_on_cpu.calls) == 6 and got.shape == want.shape == (4, 3, 64, 64)
     diff = (got.float() - want.float()).abs().max().item()
     assert diff <= BF16_ATOL, diff
+
+
+def test_cgen_outconv_runs_inside_its_span(fused_on_cpu):
+    from dcvgan_torch.utils import trace
+
+    cgen = _redrawn(ColorVideoGenerator(in_ch=1, dim_z=4, ngf=8), 0)
+    cast_for_compute(cgen, torch.device("cpu"), torch.bfloat16).eval()
+    x, z = torch.rand(2, 1, 64, 64) * 2 - 1, torch.randn(2, 4)
+    trace.enable()
+    try:
+        at = trace.mark()
+        cgen(x, z)
+        recs = trace.records(at)
+    finally:
+        trace.disable()
+    # the k3s1 call is the last of the up path's six, in its own span inside cgen.up
+    assert [r.name for r in recs] == ["cgen.down", "cgen.outconv", "cgen.up"]
+    assert recs[1].parent == "cgen.up" and len(fused_on_cpu.calls) == 6
 
 
 def _train_forwards(cgen, ggen, x, z, zg):
@@ -572,7 +771,13 @@ GPU_CASES = SCHEDULE_CASES + [(512, 4, 4, 512, 0, 256, "k4s2"), (64, 32, 32, 64,
     # at other points of a chunk, tiles across images and a partial last
     # tile, several units a CTA, weights resident, Cout split for a small grid
     (300, 5, 7, 96, 96, 192, "k4s2"), (200, 9, 9, 96, 96, 96, "k4s2"), (512, 4, 4, 384, 384, 384, "k4s2"),
-    (200, 9, 9, 48, 48, 96, "k4s2"), (40, 6, 10, 96, 192, 96, "k4s2"), (1000, 8, 8, 96, 192, 96, "k4s2")]
+    (200, 9, 9, 48, 48, 96, "k4s2"), (40, 6, 10, 96, 192, 96, "k4s2"), (1000, 8, 8, 96, 192, 96, "k4s2")] + [
+    # the outconv: mug-depth's serving site at N = 4096 (surreal-depth3's is
+    # above), its other shapes on the CPU (tap columns 16 / 32 / 96, runs
+    # ending inside a k step, no skip, rows cut into column strips), ranges
+    # cut short inside frames
+    (4096, 64, 64, 64, 64, 3, "k3s1")] + [(n, h, w, c1, c2, co, "k3s1") for n, h, w, c1, c2, co in OUTCONV_CASES] + [
+    (3, 5, 200, 24, 40, 2, "k3s1"), (133, 64, 64, 64, 64, 3, "k3s1"), (2, 7, 64, 8, 8, 4, "k3s1")]
 
 
 @pytest.mark.gpu
@@ -590,3 +795,35 @@ def test_kernel_matches_plain_on_gpu(cuda, n, h, w, c1, c2, cout, route):
     assert up.fused_norm_act_up_conv.launches == before + 2
     assert torch.equal(got, again)  # no atomics: the same bytes
     torch.testing.assert_close(got.float(), want.float(), rtol=2.0**-7, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_outconv_keeps_a_nan_in_x_in_its_neighbourhood_on_gpu(cuda):
+    x, scale, shift, wt, skip = _case(3, 64, 64, 64, 64, 3, "k3s1", seed=8, dtype=torch.bfloat16)
+    x[1, 7, 0, 63] = float("nan")
+    x, scale, shift, wt, skip = (t.to(cuda) for t in (x, scale, shift, wt, skip))
+    got = up.fused_norm_act_up_conv(x, scale, shift, wt, skip, 1, 1).float()
+    want = up.reference_norm_act_up_conv(x, scale, shift, wt, skip, 1, 1).float()
+    nan = torch.zeros_like(got, dtype=torch.bool)
+    nan[1, :, 0:2, 62:64] = True
+    assert torch.equal(got.isnan(), nan) and torch.equal(want.isnan(), nan)
+    torch.testing.assert_close(got[~nan], want[~nan], rtol=2.0**-7, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ngf", [8, 96])
+def test_cgen_forward_takes_the_outconv_kernel_once_on_gpu(cuda, ngf):
+    """One eval forward in bf16 on the card: six fused up launches, the
+    outconv's the one k3s1 among them."""
+    cgen = _redrawn(ColorVideoGenerator(in_ch=1, dim_z=4, ngf=ngf), 0)
+    cast_for_compute(cgen, cuda, torch.bfloat16).eval()
+    g = torch.Generator().manual_seed(3)
+    x, z = (torch.rand(4, 1, 64, 64, generator=g) * 2 - 1).to(cuda), torch.randn(4, 4, generator=g).to(cuda)
+    launches, routes = up.fused_norm_act_up_conv.launches, dict(up.fused_norm_act_up_conv.routes)
+    with torch.inference_mode():
+        got = cgen(x, z)
+    torch.cuda.synchronize()
+    assert up.fused_norm_act_up_conv.launches == launches + 6
+    assert up.fused_norm_act_up_conv.routes["k3s1"] == routes.get("k3s1", 0) + 1
+    assert up.fused_norm_act_up_conv.routes["k4s2"] == routes.get("k4s2", 0) + 5
+    assert got.shape == (4, 3, 64, 64) and got.isfinite().all()

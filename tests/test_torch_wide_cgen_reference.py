@@ -20,7 +20,7 @@ from dcvgan_torch import prng
 from dcvgan_torch.cli.serve import quantize
 from dcvgan_torch.models import cgen as cgen_mod
 from dcvgan_torch.models import ggen as ggen_mod
-from dcvgan_torch.ops import fused_block, fused_up, inconv
+from dcvgan_torch.ops import fused_block, fused_up, inconv, outconv
 from dcvgan_torch.train.step import DCVGAN
 from portbench import harness, judge, weights
 from portbench.reference import models, steps, streams
@@ -127,4 +127,4 @@ def test_the_planners_take_channel_runs_that_are_not_whole_chunks(op):
             c1, conv, h = cgen.up_blocks[i - 1].main[0].out_channels, cgen.up_blocks[i].main[0], 1 << i
             assert fused_up.plan(32, h, h, c1, conv.in_channels - c1, conv.out_channels).units > 0
         c1 = cgen.up_blocks[-1].main[0].out_channels
-        assert fused_up.plan(32, 64, 64, c1, cgen.outconv.main[0].in_channels - c1, 3, "k3s1").units > 0
+        assert outconv.plan(32, 64, 64, c1, cgen.outconv.main[0].in_channels - c1, 3).grid > 0

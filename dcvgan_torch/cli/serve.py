@@ -49,7 +49,8 @@ running a fixed number of them, and first prints ``{"listening": port, ...}``:
 An explicit ``seed`` pins the request to its own chunk stream, which
 replays the same bytes. Without one (or with ``seed=auto``) the request
 goes to the micro-batcher: requests that wait within ``--batch-window-ms``
-of each other share device chunks, dealt to them first come, first served.
+of each other share device chunks of only the rounds they need, dealt to
+them first come, first served.
 
 Bounds: at most ``queue_depth`` chunks in flight per request; a colour
 request streams one chunk at a time into the socket, a ``geo`` request is
@@ -131,12 +132,14 @@ def place_replicas(state: GeneratorState, mesh: Sequence) -> List[GeneratorState
 def make_chunk_fn(gan: DCVGAN, batchsize: int, iters: int, mesh: Optional[Sequence] = None):
     """One serving chunk: ``iters`` sampling rounds on the device.
 
-    ``chunk_fn(state, gen)`` returns ``(checksum, xg_u8, xc_u8)``: the videos
-    are ``(iters, B, T, H, W, C)`` uint8 and the checksum is an int64 sum of
-    every quantized pixel (take it mod 2**32). Round i draws from
-    ``prng.for_step(gen, i)``. The geometry codes are made every round,
-    whether or not the sink takes them: a segmentation ggen whose decoder
-    runs fused hands them and their sum on with its videos
+    ``chunk_fn(state, gen, rounds=None)`` returns ``(checksum, xg_u8,
+    xc_u8)``: the videos are ``(rounds, B, T, H, W, C)`` uint8 (``rounds``
+    defaults to ``iters``) and the checksum is an int64 sum of every
+    quantized pixel (take it mod 2**32). Round i draws from
+    ``prng.for_step(gen, i)``, so a short chunk's rows are the first rows of
+    the whole chunk from the same ``gen``. The geometry codes are made every
+    round, whether or not the sink takes them: a segmentation ggen whose
+    decoder runs fused hands them and their sum on with its videos
     (``models.ggen.codes_of``: one ``softmax_codes`` launch wrote the
     probabilities and their codes); otherwise, and on the ``mesh`` path,
     whose rows come back as copies, :func:`quantize` makes them here.
@@ -163,11 +166,14 @@ def make_chunk_fn(gan: DCVGAN, batchsize: int, iters: int, mesh: Optional[Sequen
                 parts.append(bundle.sample_videos(state, None, local, latents=rows))
             return tuple(torch.cat([p[j].to(gan.device) for p in parts]) for j in (0, 1))
 
-    def chunk_fn(state, gen: torch.Generator):
+    def chunk_fn(state, gen: torch.Generator, rounds: Optional[int] = None):
+        rounds = iters if rounds is None else rounds
+        if not 1 <= rounds <= iters:
+            raise ValueError(f"rounds must be in 1..{iters}, got {rounds}")
         with trace.span("serve.chunk.enqueue"), torch.inference_mode():
             total = torch.zeros((), dtype=torch.int64, device=gan.device)
             xgs, xcs = [], []
-            for i in range(iters):
+            for i in range(rounds):
                 xg, xc = sample(state, prng.for_step(gen, i))
                 codes = codes_of(xg)
                 if codes is None:  # a tanh head, or rows assembled from replicas
@@ -428,10 +434,14 @@ class GenerationServer:
         self._admission.release()
 
     def _dispatch(self, gen: torch.Generator, with_geo: bool) -> InFlight:
+        # the rounds the calling thread asked for (the micro-batcher's sets
+        # them), else a whole chunk
+        rounds = getattr(_rounds, "n", None)
         # InFlight records the chunk's event: it must stay inside the lock,
         # or one chunk's copy could wait on another chunk's event
         with self._lock:
-            return InFlight(self.chunk_fn(self.state, gen), self._copy_stream, True, with_geo)
+            return InFlight(self.chunk_fn(self.state, gen, rounds=rounds), self._copy_stream,
+                            True, with_geo)
 
     def generate_chunks(
         self, n: int, seed: int, with_geo: bool = False
@@ -503,6 +513,9 @@ class _PendingRequest:
 # the id of the batched request the calling handler thread answers (None
 # for a seeded one), for its serve.http.write spans
 _request = threading.local()
+# the rounds GenerationServer._dispatch runs for the calling thread (unset:
+# a whole chunk); only the micro-batcher's thread sets it
+_rounds = threading.local()
 
 
 class MicroBatcher:
@@ -510,11 +523,13 @@ class MicroBatcher:
 
     One worker thread owns a server-side random stream. Each round it waits
     up to ``window_s`` while the live demand is under one chunk, dispatches
-    ONE chunk (under the server's device lock, so it interleaves with seeded
-    requests), and deals the fetched videos to the waiting requests first
-    come, first served, as copies (the pinned chunk is free at once). N
-    concurrent small requests cost ``ceil(sum(n_i) / chunk)`` dispatches
-    instead of N. Geometry is fetched only in rounds where the head of the
+    ONE chunk of only the rounds that demand needs, ``min(iters,
+    ceil(demand / batchsize))`` (under the server's device lock, so it
+    interleaves with seeded requests), and deals the fetched videos to the
+    waiting requests first come, first served, as copies (the pinned chunk
+    is free at once). N concurrent small requests cost ``ceil(sum(n_i) /
+    chunk)`` dispatches instead of N; ``dispatched_rounds`` counts the
+    rounds they ran. Geometry is fetched only in rounds where the head of the
     queue wants it; a geo request behind colour-only traffic starts the
     next round.
     """
@@ -528,6 +543,7 @@ class MicroBatcher:
         # a stream of its own, apart from every client-pinned seed's stream
         self._key = prng.named(prng.base_key(seed, server.gan.device), "serve-microbatch")
         self._step = 0
+        self.dispatched_rounds = 0  # apart from the server's counters, which are the JAX server's
         self._ids = itertools.count()
         self._thread = threading.Thread(target=self._loop, daemon=True, name="serve-microbatcher")
         self._thread.start()
@@ -594,6 +610,8 @@ class MicroBatcher:
                 if not live:  # every waiter died during the window
                     continue
                 want_geo = live[0].with_geo
+                demand = sum(r.remaining for r in live)
+                rounds = min(self.server.iters, max(1, -(-demand // self.server.batchsize)))
             self._step += 1
             for r in live:
                 trace.end(r.queued)
@@ -601,6 +619,7 @@ class MicroBatcher:
             try:
                 with trace.span("serve.batch.fetch", k):
                     gen = prng.for_step(self._key, k)
+                    _rounds.n = rounds
                     _, xg, xc = self.server._dispatch(gen, want_geo).result()
                     color = xc.reshape((-1,) + xc.shape[2:])
                     geo = xg.reshape((-1,) + xg.shape[2:]) if want_geo else None
@@ -616,6 +635,7 @@ class MicroBatcher:
                             self._waiting.remove(r)
                 continue
             self.server.count("batched_chunks")
+            self.dispatched_rounds += rounds
             off = 0
             with self._cv, trace.span("serve.batch.deal", k):
                 while off < len(color) and self._waiting:

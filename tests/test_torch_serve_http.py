@@ -5,7 +5,8 @@ videos). The same request table goes to both: status codes, headers, JSON
 keys and counters must agree. The micro-batchers of both packages run
 against stub servers whose chunks stamp every video with its round and
 index, under gates that make the first-come-first-served dealing
-deterministic; each request must receive the same stamps on both sides.
+deterministic; each request must receive the same stamps on both sides,
+and the port's batcher dispatches only the rounds the waiting demand needs.
 The mp4 sinks write the same uint8 chunk, and the CLI's two forms start.
 """
 
@@ -23,6 +24,7 @@ import pytest
 import torch
 import yaml
 
+from dcvgan_torch import prng
 from dcvgan_torch.cli import serve as port_serve
 from dcvgan_torch.config import ExperimentConfig
 from dcvgan_torch.io.video import read_video
@@ -269,16 +271,16 @@ def test_a_batched_request_records_its_queue_rounds_and_writes(tracing):
 
 class _StampServer:
     """The part of a GenerationServer a MicroBatcher reads, with a chunk
-    function that stamps video i of round r with (r, i) (colour pixel
-    (r, i, 0), geometry 16 r + i). Round r first waits on ``gates[r]``,
-    and raises where r is in ``fail``."""
+    function that stamps video i of call r with (r, i) (colour pixel
+    (r, i, 0), geometry 16 r + i). Call r first waits on ``gates[r]``, and
+    raises where r is in ``fail``; ``made`` lists each call's rounds."""
 
-    batchsize, iters = 4, 2
-
-    def __init__(self, gates=None, fail=()):
+    def __init__(self, gates=None, fail=(), batchsize=4, iters=2):
+        self.batchsize, self.iters = batchsize, iters
         self.gates = gates or {}
         self.fail = set(fail)
         self.calls = 0
+        self.made = []
         self.state = None
         self._lock = threading.Lock()
         self._counter_lock = threading.Lock()
@@ -289,18 +291,20 @@ class _StampServer:
         with self._counter_lock:
             self.counters[name] += inc
 
-    def stamps(self):
+    def stamps(self, rounds=None):
+        rounds = self.iters if rounds is None else rounds
         r = self.calls
         self.calls += 1
+        self.made.append(rounds)
         if r in self.gates:
             assert self.gates[r].wait(timeout=60), f"round {r}'s gate never opened"
         if r in self.fail:
             raise RuntimeError(f"round {r} failed")
-        n = self.batchsize * self.iters
+        n = self.batchsize * rounds
         xc = np.zeros((n, 1, 1, 1, 3), np.uint8)
         xc[:, 0, 0, 0, 0], xc[:, 0, 0, 0, 1] = r, np.arange(n)
         xg = (16 * r + np.arange(n, dtype=np.uint8)).reshape(n, 1, 1, 1, 1)
-        shape = (self.iters, self.batchsize, 1, 1, 1)
+        shape = (rounds, self.batchsize, 1, 1, 1)
         return np.uint32(0), xg.reshape(shape + (1,)), xc.reshape(shape + (3,))
 
 
@@ -314,8 +318,8 @@ class _PortStamps(_StampServer):
     _copy_stream = None
     _dispatch = port_serve.GenerationServer._dispatch  # the real dispatch, on the CPU
 
-    def chunk_fn(self, state, gen):
-        csum, xg, xc = self.stamps()
+    def chunk_fn(self, state, gen, rounds=None):
+        csum, xg, xc = self.stamps(rounds)
         return torch.tensor(int(csum)), torch.from_numpy(xg), torch.from_numpy(xc)
 
 
@@ -327,11 +331,11 @@ def _decode(item):
     return got
 
 
-def _run_script(batcher_cls, server, script, gates):
+def _run_script(batcher, server, script, gates):
     """Submit ``script`` [(name, n, geo, abandon)] one after another (each
     waiting in the queue before the next), open round 0's gate, and return
-    {name: stamps received or the exception}, with the counters."""
-    batcher = batcher_cls(server, window_s=0.001)
+    {name: stamps received or the exception}, with the counters. Closes
+    ``batcher``."""
     got = {name: [] for name, *_ in script}
 
     def consume(name, n, geo, abandon):
@@ -374,7 +378,7 @@ def _run_script(batcher_cls, server, script, gates):
 
 
 # A: 3, B: 6, X: 10 (leaves after its first slice), C: 2, G: 4 with
-# geometry, D: 9, in chunks of 8 videos
+# geometry, D: 9, in chunks of one round of 8 videos
 SCRIPT = [("A", 3, False, False), ("B", 6, False, False), ("X", 10, False, True),
           ("C", 2, False, False), ("G", 4, True, False), ("D", 9, False, False)]
 EXPECTED = {
@@ -385,34 +389,116 @@ EXPECTED = {
     "G": [(3, i) for i in range(4)],
     "D": [(3, i) for i in range(4, 8)] + [(4, i) for i in range(5)],
 }
+# the port's own dealing of SCRIPT in chunks of 2 rounds of 4: call 0, for A
+# alone, makes one round, so B's first video comes from it; every later
+# call's waiting demand needs both rounds
+EXPECTED_SHORT = {
+    "A": [(0, 0), (0, 1), (0, 2)],
+    "B": [(0, 3)] + [(1, i) for i in range(5)],
+    "X": [(1, 5), (1, 6), (1, 7)],
+    "C": [(2, 0), (2, 1)],
+    "G": [(3, i) for i in range(4)],
+    "D": [(3, i) for i in range(4, 8)] + [(4, i) for i in range(5)],
+}
 
 
-@pytest.mark.parametrize("case", ["dealing", "failure"])
+@pytest.mark.parametrize("case", ["dealing", "dealing-short", "failure"])
 def test_micro_batcher_deals_as_the_jax_one(case):
     """The same arrival script through both packages' MicroBatcher. Round 0
-    waits until the whole script is queued; in the dealing case round 2
+    waits until the whole script is queued; in the dealing cases round 2
     waits until X has left, and in the failure case round 0 raises: only
     the request it was dispatched for (A, alone in the queue when it
-    started) fails, and B is served by round 1."""
-    script = SCRIPT if case == "dealing" else [("A", 2, False, False), ("B", 2, False, False)]
-    results = {}
-    for side, batcher_cls, stub in (("jax", jax_serve.MicroBatcher, _JaxStamps),
-                                    ("port", port_serve.MicroBatcher, _PortStamps)):
+    started) fails, and B is served by round 1. In the dealing case a chunk
+    is one round, so the port's short dispatches deal as JAX's whole chunks;
+    the dealing-short case runs the port alone on chunks of 2 rounds."""
+    script = SCRIPT if case != "failure" else [("A", 2, False, False), ("B", 2, False, False)]
+    sides = (("jax", jax_serve.MicroBatcher, _JaxStamps),
+             ("port", port_serve.MicroBatcher, _PortStamps))
+    results, stubs, batchers = {}, {}, {}
+    for side, batcher_cls, stub in sides[1:] if case == "dealing-short" else sides:
         gates = {0: threading.Event(), "abandoned": threading.Event()}
         if case == "dealing":
+            server = stub(gates={0: gates[0], 2: gates["abandoned"]}, batchsize=8, iters=1)
+        elif case == "dealing-short":
             server = stub(gates={0: gates[0], 2: gates["abandoned"]})
         else:
             server = stub(gates={0: gates[0]}, fail={0})
-        results[side] = _run_script(batcher_cls, server, script, gates)
-    assert results["port"] == results["jax"]
+        stubs[side] = server
+        batchers[side] = batcher_cls(server, window_s=0.001)
+        results[side] = _run_script(batchers[side], server, script, gates)
+    if case != "dealing-short":
+        assert results["port"] == results["jax"]
     got, counters = results["port"]
-    if case == "dealing":
-        assert got == EXPECTED
-        assert counters == {"requests": 5, "videos_served": 24, "errors": 0, "rejected": 0,
-                            "batched_requests": 5, "batched_chunks": 5}
-    else:
+    if case == "failure":
         assert got == {"A": "round 0 failed", "B": [(1, 0), (1, 1)]}
         assert counters["errors"] == 1 and counters["batched_chunks"] == 1
+        return
+    assert got == (EXPECTED if case == "dealing" else EXPECTED_SHORT)
+    assert counters == {"requests": 5, "videos_served": 24, "errors": 0, "rejected": 0,
+                        "batched_requests": 5, "batched_chunks": 5}
+    dealt = [stamp for stamps in got.values() for stamp in stamps]
+    assert len(dealt) == len(set(dealt))  # no video dealt twice
+    made = [1] * 5 if case == "dealing" else [1, 2, 2, 2, 2]
+    assert stubs["port"].made == made
+    assert batchers["port"].dispatched_rounds == sum(made)
+
+
+# (demand, the rounds of each dispatch) for chunks of 3 rounds of B = 4
+DEMANDS = [(1, [1]), (4, [1]), (5, [2]), (12, [3]), (13, [3, 1])]
+
+
+@pytest.mark.parametrize("demand,made", DEMANDS, ids=["1", "B", "B+1", "B*iters", "above"])
+def test_batcher_dispatches_the_rounds_its_demand_needs(demand, made):
+    """One request of ``demand`` videos: each dispatch runs min(iters,
+    ceil(remaining / B)) rounds, and the request gets the calls' videos in
+    order."""
+    server = _PortStamps(batchsize=4, iters=3)
+    batcher = port_serve.MicroBatcher(server, window_s=0.001)
+    try:
+        got = [stamp for item in batcher.submit(demand) for stamp in _decode(item)]
+    finally:
+        batcher.close()
+    assert server.made == made
+    assert batcher.dispatched_rounds == sum(made) == -(-demand // 4)
+    assert got == [(r, i) for r, rounds in enumerate(made) for i in range(4 * rounds)][:demand]
+    assert server.counters["batched_chunks"] == len(made)
+
+
+def test_short_dispatch_equals_the_chunks_first_rounds():
+    """A 1-round and a 2-round dispatch from the batcher's thread are the
+    first rows of the whole chunk from the same stream, byte for byte, and
+    each checksum is the sum of its own rows."""
+    _, gan = _port_gan()
+    server = port_serve.GenerationServer(gan, gan.init_state(0).generators(), batchsize=2,
+                                         iters_per_chunk=3)
+    gen = prng.for_step(prng.base_key(5), 3)
+    try:
+        whole = server._dispatch(gen, True).result()
+
+        def short(rounds):
+            out = []
+
+            def run():  # as the micro-batcher's thread dispatches
+                port_serve._rounds.n = rounds
+                out.append(server._dispatch(gen, True).result())
+
+            thread = threading.Thread(target=run)
+            thread.start()
+            thread.join(timeout=60)
+            assert not thread.is_alive()
+            return out[0]
+
+        parts = {rounds: short(rounds) for rounds in (1, 2)}
+    finally:
+        server.close()
+    assert whole[2].shape == (3, 2, T, 64, 64, 3)
+    for rounds, (csum, xg, xc) in parts.items():
+        assert xc.shape == (rounds, 2, T, 64, 64, 3) and xg.shape == (rounds, 2, T, 64, 64, 1)
+        assert xc.tobytes() == whole[2][:rounds].tobytes()
+        assert xg.tobytes() == whole[1][:rounds].tobytes()
+        assert csum == (int(xc.sum(dtype=np.int64)) + int(xg.sum(dtype=np.int64))) % 2**32
+    assert whole[0] == (int(whole[2].sum(dtype=np.int64))
+                        + int(whole[1].sum(dtype=np.int64))) % 2**32
 
 
 def test_mp4_sink_writes_the_jax_files(tmp_path):
